@@ -1,0 +1,176 @@
+"""Lamppost -> disc emissivity profile (the reference's flagship app).
+
+Counterpart of ``raytrace_tpu/apps/emissivity.py`` (plain variant, one
+device; reference ``emissivity.cpp``): trace an isotropic grid of rays from
+a point source above the hole, keep those striking the equatorial disc
+outside the ISCO, and accumulate per radial bin the ray count, photon flux,
+emissivity (redshift^-gamma for a power-law source of index gamma), mean
+redshift and mean arrival time, normalised by the proper annulus area.
+
+Output: 7 text columns (r, area, N_rays, flux, emis, <g>, <t>).
+
+    python -m raytrace_tpu_torch.apps.emissivity --parfile=par_example/emissivity.par [--device=cuda|cpu]
+"""
+
+from __future__ import annotations
+
+import math
+import sys
+
+import numpy as np
+import torch
+
+from raytrace_tpu_torch.config import Config
+from raytrace_tpu_torch.geometry import integrate_disc_area_bins, isco_radius
+from raytrace_tpu_torch.geometry.kerr import bl_to_cartesian
+from raytrace_tpu_torch.io import TextOutput
+from raytrace_tpu_torch.ops import StepControl, trace_auto
+from raytrace_tpu_torch.ops.reductions import bin_edges, radial_bin_profile
+from raytrace_tpu_torch.ops.redshift import apply_redshift, range_phi, redshift_start
+from raytrace_tpu_torch.sources import PointSourceGrid, point_source
+
+
+def disc_hit_mask(out, spin, r_isco=None):
+    """Disc-hit selection (emissivity.cpp:99-107): completed ray, close to the
+    equatorial plane in height z, physical redshift, outside the ISCO."""
+    if r_isco is None:
+        r_isco = isco_radius(spin)
+    _, _, z = bl_to_cartesian(out.r, out.theta, out.phi, spin)
+    return out.ok & (z < 1e-2) & (out.redshift > 0) & (out.r >= r_isco)
+
+
+def emissivity_bin_weights(out, gamma, n_primary=1.0):
+    """Per-ray weights of the radial bins (emissivity.cpp:108-121): photon
+    flux 1/(N g), emissivity 1/g^gamma, redshift and arrival time."""
+    g = out.redshift
+    return {
+        "flux": 1.0 / (n_primary * g),
+        "emis": 1.0 / g**gamma,
+        "redshift": g,
+        "time": out.t,
+    }
+
+
+def compute(
+    spin,
+    source,
+    V=0.0,
+    grid: PointSourceGrid | None = None,
+    r_max=1000.0,
+    r_min=None,
+    r_disc=500.0,
+    n_r=100,
+    logbin_r=True,
+    gamma=2.0,
+    method="rk45",
+    steplim=None,
+    ctrl=StepControl(),
+    *,
+    device,
+):
+    """Run the emissivity pipeline on ``device``; returns a dict of per-bin
+    numpy columns. Sources, redshifts and bins are built in float64; the
+    march goes through ``trace_auto``: the CUDA kernel in float32 for a
+    CUDA device, the plain march (float64) otherwise."""
+    r_isco = isco_radius(spin)
+    if r_min is None or r_min < 0:
+        r_min = float(r_isco)
+
+    disc_r, disc_width, dr = bin_edges(r_min, r_disc, n_r, logbin_r, device="cpu")
+    # per-bin proper area in the disc material rest frame (emissivity.cpp:79)
+    areas = integrate_disc_area_bins(disc_r, disc_r + disc_width, spin)
+
+    # grid-cell count for the primary-flux normalisation (emissivity.cpp:61):
+    # the reference counts cells without the +1 fencepost
+    n_primary = ((grid.cosalphamax - grid.cosalpha0) / grid.dcosalpha) * (
+        (grid.betamax - grid.beta0) / grid.dbeta
+    )
+
+    rays = point_source(source, V, spin, grid, device=device)
+    rays = redshift_start(rays, spin, V)
+    rays = trace_auto(rays, spin, method=method, r_max=r_max, steplim=steplim, ctrl=ctrl)
+    rays = range_phi(rays)
+    rays = apply_redshift(rays, spin, V=-1.0)
+    mask = disc_hit_mask(rays, spin, r_isco)
+
+    counts, sums = radial_bin_profile(
+        rays.r, mask, emissivity_bin_weights(rays, gamma, n_primary),
+        r_min, dr, n_r, logbin_r,
+    )
+    counts_np = counts.cpu().numpy()
+    sums = {k: v.cpu().numpy() for k, v in sums.items()}
+    areas_np = areas.numpy()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return {
+            "r": disc_r.numpy(),
+            "area": areas_np,
+            "rays": counts_np.astype(np.int64),
+            "flux": sums["flux"] / areas_np,
+            "emis": sums["emis"] / areas_np,
+            "redshift": sums["redshift"] / counts_np,
+            "time": sums["time"] / counts_np,
+        }
+
+
+def compute_args(cfg: Config) -> dict:
+    """``compute``'s keyword arguments from a run configuration (par file
+    and CLI), with the reference's defaults."""
+    source = cfg.get_array("source", float, 4)
+    if cfg.args.key_exists("source_h"):
+        source[1] = cfg.args.get("source_h", float)
+    spin = cfg.get("spin", float)
+    V = cfg.get("V", float, 0.0)
+    grid = PointSourceGrid.from_steps(
+        cfg.get("dcosalpha", float),
+        cfg.get("dbeta", float),
+        cfg.get("cosalpha0", float, -0.995),
+        cfg.get("cosalphamax", float, 0.995),
+        cfg.get("beta0", float, -math.pi),
+        cfg.get("betamax", float, math.pi),
+    )
+    # the reference reads both limits from the key "r_esc"
+    # (emissivity.cpp:46,51 — documented quirk, SURVEY.md §7)
+    r_max = cfg.get("r_esc", float, 1000.0)
+    r_disc = cfg.get("r_esc", float, 500.0)
+    r_min = cfg.get("rmin", float, -1.0)
+    n_r = cfg.get("Nr", int, 100)
+    logbin_r = cfg.get("logbin_r", bool, True)
+    gamma = cfg.get("gamma", float, 2.0)
+    method = cfg.get("integrator", str, "rk45").lower()
+    steplim = cfg.get("steplim", int, -1)
+    device = torch.device(cfg.get("device", str, "cuda" if torch.cuda.is_available() else "cpu"))
+    return dict(
+        spin=spin,
+        source=source,
+        V=V,
+        grid=grid,
+        r_max=r_max,
+        r_min=None if r_min < 0 else r_min,
+        r_disc=r_disc,
+        n_r=n_r,
+        logbin_r=logbin_r,
+        gamma=gamma,
+        method=method,
+        steplim=None if steplim <= 0 else steplim,
+        device=device,
+    )
+
+
+def main(argv=None):
+    cfg = Config(argv)
+    outfile = cfg.get("outfile", str)
+    kw = compute_args(cfg)
+    print(f"emissivity: spin={kw['spin']} source={kw['source']} {kw['grid'].n_rays} rays "
+          f"on {kw['device']}")
+    out = compute(**kw)
+    with TextOutput(outfile) as f:
+        f.write_columns(
+            out["r"], out["area"], out["rays"], out["flux"], out["emis"],
+            out["redshift"], out["time"],
+        )
+    print(f"wrote {outfile}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

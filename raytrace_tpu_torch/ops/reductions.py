@@ -1,0 +1,58 @@
+"""Binned reductions over the ray axis.
+
+Counterpart of ``raytrace_tpu/ops/reductions.py``: a masked segment sum
+with a scrap bin for the rays outside the mask, as ``index_add_`` into an
+``n_bins + 1`` buffer. On a CUDA tensor ``index_add_`` adds with atomics in
+an order that changes from run to run: counts stay exact, float sums agree
+to rounding.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def radial_bin_index(r, r_min, dr, n_bins, logbin: bool):
+    """Bin index under the reference convention (emissivity.cpp:59,105):
+    log bins floor(log(r/r_min)/log(dr)), linear floor((r - r_min)/dr)."""
+    if logbin:
+        ir = torch.floor(torch.log(r / r_min) / math.log(dr))
+    else:
+        ir = torch.floor((r - r_min) / dr)
+    in_range = (ir >= 0) & (ir < n_bins)
+    return torch.where(in_range, ir, torch.zeros_like(ir)).to(torch.int64), in_range
+
+
+def bin_edges(r_min, r_max, n_bins, logbin: bool, *, device, dtype=torch.float64):
+    """Left edges, widths and step (emissivity.cpp:59,78): log bins
+    r_i = r_min * dr^i with dr = exp(log(r_max/r_min)/Nr); linear
+    r_i = r_min + i*dr."""
+    i = torch.arange(n_bins, dtype=dtype, device=device)
+    if logbin:
+        dr = math.exp(math.log(r_max / r_min) / n_bins)
+        r = r_min * dr**i
+        width = r * dr - r
+    else:
+        dr = (r_max - r_min) / n_bins
+        r = r_min + i * dr
+        width = torch.full_like(r, dr)
+    return r, width, dr
+
+
+def masked_segment_sum(values, seg_ids, mask, n_bins):
+    """Sum ``values`` into n_bins segments, dropping rays where mask is False."""
+    ids = torch.where(mask, seg_ids, n_bins)  # scrap bin
+    out = torch.zeros(n_bins + 1, dtype=values.dtype, device=values.device)
+    out.index_add_(0, ids, torch.where(mask, values, torch.zeros_like(values)))
+    return out[:n_bins]
+
+
+def radial_bin_profile(r, mask, weights: dict, r_min, dr, n_bins, logbin: bool):
+    """Bin per-ray weights into radial bins; returns (counts, {name: sum})."""
+    ids, in_range = radial_bin_index(r, r_min, dr, n_bins, logbin)
+    m = mask & in_range
+    counts = masked_segment_sum(torch.ones_like(r), ids, m, n_bins)
+    sums = {k: masked_segment_sum(v, ids, m, n_bins) for k, v in weights.items()}
+    return counts, sums
