@@ -1,11 +1,13 @@
 """Lamppost -> disc emissivity profile (the reference's flagship app).
 
-Counterpart of ``raytrace_tpu/apps/emissivity.py`` (plain variant, one
-device; reference ``emissivity.cpp``): trace an isotropic grid of rays from
-a point source above the hole, keep those striking the equatorial disc
-outside the ISCO, and accumulate per radial bin the ray count, photon flux,
-emissivity (redshift^-gamma for a power-law source of index gamma), mean
-redshift and mean arrival time, normalised by the proper annulus area.
+Counterpart of ``raytrace_tpu/apps/emissivity.py`` (one device; reference
+``emissivity.cpp``): trace an isotropic grid of rays from a point source
+above the hole, keep those striking the equatorial disc outside the ISCO,
+and accumulate per radial bin the ray count, photon flux, emissivity
+(redshift^-gamma for a power-law source of index gamma), mean redshift and
+mean arrival time, normalised by the proper annulus area. ``main_rd`` is the
+destination-API variant (``emissivity_rd.cpp``): FlatDisc at theta_lim, RK4
+by default, the destination's 4-velocity redshift.
 
 Output: 7 text columns (r, area, N_rays, flux, emis, <g>, <t>).
 
@@ -21,12 +23,18 @@ import numpy as np
 import torch
 
 from raytrace_tpu_torch.config import Config
+from raytrace_tpu_torch.destinations import FlatDisc
 from raytrace_tpu_torch.geometry import integrate_disc_area_bins, isco_radius
 from raytrace_tpu_torch.geometry.kerr import bl_to_cartesian
 from raytrace_tpu_torch.io import TextOutput
 from raytrace_tpu_torch.ops import StepControl, trace_auto
 from raytrace_tpu_torch.ops.reductions import bin_edges, radial_bin_profile
-from raytrace_tpu_torch.ops.redshift import apply_redshift, range_phi, redshift_start
+from raytrace_tpu_torch.ops.redshift import (
+    apply_redshift,
+    apply_redshift_dest,
+    range_phi,
+    redshift_start,
+)
 from raytrace_tpu_torch.sources import PointSourceGrid, point_source
 
 
@@ -65,6 +73,8 @@ def compute(
     method="rk45",
     steplim=None,
     ctrl=StepControl(),
+    variant="plain",  # "plain" (emissivity.cpp) | "rd" (emissivity_rd.cpp)
+    theta_lim=math.pi / 2,
     *,
     device,
 ):
@@ -88,10 +98,23 @@ def compute(
 
     rays = point_source(source, V, spin, grid, device=device)
     rays = redshift_start(rays, spin, V)
-    rays = trace_auto(rays, spin, method=method, r_max=r_max, steplim=steplim, ctrl=ctrl)
-    rays = range_phi(rays)
-    rays = apply_redshift(rays, spin, V=-1.0)
-    mask = disc_hit_mask(rays, spin, r_isco)
+    if variant == "rd":
+        # destination-API route (emissivity_rd.cpp:99-116): FlatDisc surface,
+        # 4-velocity redshift, hit test on the landing polar angle
+        dest = FlatDisc(theta_lim)
+        rays = trace_auto(rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim,
+                          ctrl=ctrl)
+        rays = range_phi(rays)
+        rays = apply_redshift_dest(rays, spin, dest)
+        mask = (rays.ok & (rays.theta >= theta_lim - 1e-3) & (rays.redshift > 0)
+                & (rays.r >= r_isco))
+    elif variant == "plain":
+        rays = trace_auto(rays, spin, method=method, r_max=r_max, steplim=steplim, ctrl=ctrl)
+        rays = range_phi(rays)
+        rays = apply_redshift(rays, spin, V=-1.0)
+        mask = disc_hit_mask(rays, spin, r_isco)
+    else:
+        raise ValueError(f"unknown variant {variant!r}")
 
     counts, sums = radial_bin_profile(
         rays.r, mask, emissivity_bin_weights(rays, gamma, n_primary),
@@ -112,9 +135,9 @@ def compute(
         }
 
 
-def compute_args(cfg: Config) -> dict:
+def compute_args(cfg: Config, variant: str = "plain") -> dict:
     """``compute``'s keyword arguments from a run configuration (par file
-    and CLI), with the reference's defaults."""
+    and CLI), with the reference's defaults for ``variant``."""
     source = cfg.get_array("source", float, 4)
     if cfg.args.key_exists("source_h"):
         source[1] = cfg.args.get("source_h", float)
@@ -136,7 +159,7 @@ def compute_args(cfg: Config) -> dict:
     n_r = cfg.get("Nr", int, 100)
     logbin_r = cfg.get("logbin_r", bool, True)
     gamma = cfg.get("gamma", float, 2.0)
-    method = cfg.get("integrator", str, "rk45").lower()
+    method = cfg.get("integrator", str, "rk4" if variant == "rd" else "rk45").lower()
     steplim = cfg.get("steplim", int, -1)
     device = torch.device(cfg.get("device", str, "cuda" if torch.cuda.is_available() else "cpu"))
     return dict(
@@ -152,24 +175,33 @@ def compute_args(cfg: Config) -> dict:
         gamma=gamma,
         method=method,
         steplim=None if steplim <= 0 else steplim,
+        variant=variant,
+        theta_lim=cfg.get("theta_lim", float, math.pi / 2),
         device=device,
     )
 
 
-def main(argv=None):
-    cfg = Config(argv)
-    outfile = cfg.get("outfile", str)
-    kw = compute_args(cfg)
-    print(f"emissivity: spin={kw['spin']} source={kw['source']} {kw['grid'].n_rays} rays "
-          f"on {kw['device']}")
-    out = compute(**kw)
-    with TextOutput(outfile) as f:
-        f.write_columns(
-            out["r"], out["area"], out["rays"], out["flux"], out["emis"],
-            out["redshift"], out["time"],
-        )
-    print(f"wrote {outfile}")
-    return 0
+def _main(variant):
+    def main(argv=None):
+        cfg = Config(argv)
+        outfile = cfg.get("outfile", str)
+        kw = compute_args(cfg, variant)
+        print(f"emissivity[{variant}]: spin={kw['spin']} source={kw['source']} "
+              f"{kw['grid'].n_rays} rays on {kw['device']}")
+        out = compute(**kw)
+        with TextOutput(outfile) as f:
+            f.write_columns(
+                out["r"], out["area"], out["rays"], out["flux"], out["emis"],
+                out["redshift"], out["time"],
+            )
+        print(f"wrote {outfile}")
+        return 0
+
+    return main
+
+
+main = _main("plain")
+main_rd = _main("rd")
 
 
 if __name__ == "__main__":

@@ -39,6 +39,13 @@ constexpr int STATUS_TERMINAL = STATUS_DEST | STATUS_HORIZON | STATUS_RLIM |
 
 constexpr int METHOD_RK4 = 1;
 constexpr int METHOD_RK45 = 2;
+constexpr int METHOD_EULER = 3;
+
+// Destinations (destinations.py): the parameters p0..p2 of Params are
+//   DEST_THETA  ThetaLimit / FlatDisc   (theta_lim, -, -)
+//   DEST_ISCO   DiscWithISCO            (r_isco, r_out, theta_lim)
+constexpr int DEST_THETA = 0;
+constexpr int DEST_ISCO = 1;
 
 constexpr double PI = 3.14159265358979323846;
 
@@ -108,10 +115,10 @@ template <typename T> struct Spin {
 };
 
 // Scalars of one march: spin, outer radius, the inner absorbing radius and
-// the ThetaLimit surface, plus the step budgets.
+// the destination's three parameters (see DEST_*), plus the step budgets.
 template <typename T> struct Params {
   Spin<T> spin;
-  T r_max, horizon, theta_lim;
+  T r_max, horizon, p0, p1, p2;
   int steplim, max_iters;
   Ctrl<T> c;
 };
@@ -182,6 +189,31 @@ template <typename T> RT_HD bool theta_reached(T tl, T theta) {
   return (tl > 0 && theta >= tl) || (tl < 0 && theta <= -tl);
 }
 
+// DiscWithISCO._in_annulus: r in [r_isco, r_out]; r_out <= 0 has no outer edge.
+template <typename T> RT_HD bool in_annulus(const Params<T>& p, T r) {
+  return r >= p.p0 && (p.p1 <= 0 || r <= p.p1);
+}
+
+// Destination.reached after a committed step from prev_theta. DiscWithISCO
+// stops only where theta crossed |theta_lim| since the previous step, from
+// either side, inside the annulus; theta_lim == 0 never stops.
+template <int DEST, typename T>
+RT_HD bool dest_reached(const Params<T>& p, T r, T theta, T prev_theta) {
+  if (DEST == DEST_THETA) return theta_reached(p.p0, theta);
+  const T tl = p.p2;
+  const T lim = tl > 0 ? tl : -tl;
+  const bool crossed = (prev_theta < lim && theta >= lim) || (prev_theta > lim && theta <= lim);
+  return tl != 0 && crossed && in_annulus(p, r);
+}
+
+// Destination.step_limit at the step's starting point: DiscWithISCO clamps
+// onto its surface only where the step starts inside the annulus.
+template <int DEST, typename T>
+RT_HD T dest_step_limit(const Params<T>& p, T r, T theta, T ptheta) {
+  if (DEST == DEST_THETA) return theta_step_limit(p.p0, theta, ptheta);
+  return in_annulus(p, r) ? theta_step_limit(p.p2, theta, ptheta) : Lim<T>::inf();
+}
+
 template <typename T> RT_HD bool is_active(const Ray<T>& ray) {
   return ray.steps >= 0 && (ray.status & STATUS_TERMINAL) == 0;
 }
@@ -230,7 +262,7 @@ template <typename T> RT_HD void polar_reflect(T& theta, T& phi, T& thetadot_sig
 
 // The position half of _commit for an accepted step: new point and
 // momentum, equator crossing, then horizon > rlim > destination.
-template <typename T>
+template <int DEST, typename T>
 RT_HD void commit(Ray<T>& ray, const Params<T>& p, T capture, T t, T r, T theta,
                   T phi, T pt, T pr, T ptheta, T pphi) {
   const T prev_theta = ray.theta;
@@ -249,7 +281,7 @@ RT_HD void commit(Ray<T>& ray, const Params<T>& p, T capture, T t, T r, T theta,
     ray.status |= STATUS_HORIZON;
   else if (p.r_max > 0 && r >= p.r_max)
     ray.status |= STATUS_RLIM;
-  else if (theta_reached(p.theta_lim, theta))
+  else if (dest_reached<DEST>(p, r, theta, prev_theta))
     ray.status |= STATUS_DEST;
 }
 
@@ -266,9 +298,9 @@ RT_HD void count_step(Ray<T>& ray, const Params<T>& p, bool counted, bool r_flip
     ray.status |= STATUS_STEPLIM;
 }
 
-// One RK4 iteration (_euler_rk4_body, RK4 branch, ThetaLimit destination).
-template <typename T>
-RT_HD void rk4_step(Ray<T>& ray, const Params<T>& p, T capture) {
+// One Euler or RK4 iteration (_euler_rk4_body).
+template <typename T, int METHOD, int DEST>
+RT_HD void euler_rk4_step(Ray<T>& ray, const Params<T>& p, T capture) {
   const Spin<T>& a = p.spin;
   const Ctrl<T>& c = p.c;
   const Rates<T> k1 = geodesic_rates(ray.r, ray.theta, ray.k, ray.h, ray.Q,
@@ -286,7 +318,8 @@ RT_HD void rk4_step(Ray<T>& ray, const Params<T>& p, T capture) {
   const T pt1 = k1.pt, pr1 = s.pr1, pth1 = k1.ptheta, pph1 = k1.pphi;
   const T r = ray.r, theta = ray.theta;
 
-  // _base_step_size, then the ThetaLimit clamp onto the disc plane
+  // _base_step_size, then (ThetaLimit only: integrate.py:289-293) the clamp
+  // onto the surface
   T step = m_abs(safe_div(r - p.horizon, pr1)) / c.precision;
   const T theta_cap = m_abs(safe_div(theta, pth1));
   if (step > theta_cap / c.precision) step = theta_cap / c.theta_precision;
@@ -300,8 +333,18 @@ RT_HD void rk4_step(Ray<T>& ray, const Params<T>& p, T capture) {
   }
   step = vmax(step, c.min_step);
   if (p.r_max > 0 && r + pr1 * step > p.r_max) step = m_abs(safe_div(p.r_max - r, pr1));
-  step = vmin(step, theta_step_limit(p.theta_lim, theta, pth1));
+  if (DEST == DEST_THETA) step = vmin(step, theta_step_limit(p.p0, theta, pth1));
 
+  if (METHOD == METHOD_EULER) {  // the step is the k1 rates; they are the new momentum
+    const T t_n = ray.t + pt1 * step;
+    const T r_n = r + pr1 * step;
+    T th_n = theta + pth1 * step;
+    T ph_n = ray.phi + pph1 * step;
+    polar_reflect(th_n, ph_n, ray.thetadot_sign);
+    commit<DEST>(ray, p, capture, t_n, r_n, th_n, ph_n, pt1, pr1, pth1, pph1);
+    count_step(ray, p, true, s.r_flip);
+    return;
+  }
   const T half = step / T(2);
   const T rs = s.rdot_sign, ts = s.thetadot_sign;
   const Rates<T> k2 = geodesic_rates(r + half * pr1, theta + half * pth1, ray.k, ray.h, ray.Q, rs, ts, a);
@@ -314,13 +357,13 @@ RT_HD void rk4_step(Ray<T>& ray, const Params<T>& p, T capture) {
   T ph_n = ray.phi + w * (pph1 + T(2) * k2.pphi + T(2) * k3.pphi + k4.pphi);
   polar_reflect(th_n, ph_n, ray.thetadot_sign);
 
-  commit(ray, p, capture, t_n, r_n, th_n, ph_n, k4.pt, k4.pr, k4.ptheta, k4.pphi);
+  commit<DEST>(ray, p, capture, t_n, r_n, th_n, ph_n, k4.pt, k4.pr, k4.ptheta, k4.pphi);
   count_step(ray, p, true, s.r_flip);
 }
 
-// One DOPRI5 iteration (_rk45_body, ThetaLimit destination). `step` is the
-// carried adaptive step and `k1` the FSAL carry: rates at the current point.
-template <typename T>
+// One DOPRI5 iteration (_rk45_body). `step` is the carried adaptive step
+// and `k1` the FSAL carry: rates at the current point.
+template <typename T, int DEST>
 RT_HD void rk45_step(Ray<T>& ray, const Params<T>& p, T capture, T& step, Rates<T>& k1) {
   const Spin<T>& a = p.spin;
   const Ctrl<T>& c = p.c;
@@ -349,7 +392,7 @@ RT_HD void rk45_step(Ray<T>& ray, const Params<T>& p, T capture, T& step, Rates<
   if (step > step_max) step = step_max;
 
   // destination clamp: a clamped accepted step keeps the old step size
-  const T lim = theta_step_limit(p.theta_lim, theta, pth1);
+  const T lim = dest_step_limit<DEST>(p, r, theta, pth1);
   const bool clamped = lim < step;
   const T h_try = clamped ? lim : step;
 
@@ -418,14 +461,14 @@ RT_HD void rk45_step(Ray<T>& ray, const Params<T>& p, T capture, T& step, Rates<
   step = (accept_err && clamped) ? step : step_new;
   if (accept) {
     ray.thetadot_sign = ts_r;
-    commit(ray, p, capture, t_new, r_new, th_new, phi_new, k7.pt, k7.pr, k7.ptheta, k7.pphi);
+    commit<DEST>(ray, p, capture, t_new, r_new, th_new, phi_new, k7.pt, k7.pr, k7.ptheta, k7.pphi);
     k1 = k7;
   }
   count_step(ray, p, accept, s.r_flip);
 }
 
 // March ray i of the batch to termination (or max_iters) and store it.
-template <typename T, int METHOD>
+template <typename T, int METHOD, int DEST>
 RT_HD void march_one(const Params<T>& p, const Fields<T>& f, int64_t i) {
   Ray<T> ray{f.t[i], f.r[i], f.theta[i], f.phi[i], f.pt[i], f.pr[i], f.ptheta[i],
              f.pphi[i], f.k[i], f.h[i], f.Q[i], f.rdot_sign[i], f.thetadot_sign[i],
@@ -442,10 +485,11 @@ RT_HD void march_one(const Params<T>& p, const Fields<T>& f, int64_t i) {
       Rates<T> k1 = geodesic_rates(ray.r, ray.theta, ray.k, ray.h, ray.Q, ray.rdot_sign,
                                    ray.thetadot_sign, p.spin);
       for (int it = 0; it < p.max_iters && is_active(ray); ++it)
-        rk45_step(ray, p, capture, step, k1);
+        rk45_step<T, DEST>(ray, p, capture, step, k1);
       ray.dt = step;
     } else {
-      for (int it = 0; it < p.max_iters && is_active(ray); ++it) rk4_step(ray, p, capture);
+      for (int it = 0; it < p.max_iters && is_active(ray); ++it)
+        euler_rk4_step<T, METHOD, DEST>(ray, p, capture);
     }
   }
   // stuck rays get their (positive) step count negated
@@ -472,14 +516,19 @@ RT_HD void march_one(const Params<T>& p, const Fields<T>& f, int64_t i) {
 }
 
 // Build the march scalars in the working type from the caller's doubles.
+// Each is rounded once to T, as torch rounds a Python float it compares
+// with or subtracts from a tensor of type T: a ray landing on an annulus
+// edge then stops or passes in both marches alike.
 template <typename T>
-inline Params<T> make_params(double spin, double r_max, double horizon, double theta_lim,
+inline Params<T> make_params(double spin, double r_max, double horizon, const double* dest,
                              int steplim, int max_iters, const double* ctrl) {
   Params<T> p;
   p.spin = Spin<T>{T(spin), T(spin * spin), T(2.0 * spin * spin)};
   p.r_max = T(r_max);
   p.horizon = T(horizon);
-  p.theta_lim = T(theta_lim);
+  p.p0 = T(dest[0]);
+  p.p1 = T(dest[1]);
+  p.p2 = T(dest[2]);
   p.steplim = steplim;
   p.max_iters = max_iters;
   p.c = Ctrl<T>{T(ctrl[0]), T(ctrl[1]), T(ctrl[2]), T(ctrl[3]), T(ctrl[4]), T(ctrl[5]),

@@ -4,8 +4,8 @@ Counterpart of ``raytrace_tpu/ops/integrate.py`` and the plain version of
 the CUDA march kernel (``ops/march_kernel.py``): the whole batch marches in
 lock-step, one masked step body per iteration, until no ray is active or
 ``max_iters`` is reached. Finished rays are frozen. RK4 and the adaptive
-Dormand-Prince DOPRI5 (``rk45``) with its FSAL carry are ported; Euler is
-not yet. Works in f32 or f64 on whatever device the batch lives on.
+Dormand-Prince DOPRI5 (``rk45``) with its FSAL carry, and Euler, are
+ported. Works in f32 or f64 on whatever device the batch lives on.
 
 Retired lanes are dropped every ``_COMPACT_EVERY`` iterations (gather the
 active rays, march them, scatter back): a retired lane is frozen, so this
@@ -272,9 +272,7 @@ def _signs(active, st, rdot_sign, thetadot_sign, rwp, twp):
 
 def _euler_rk4_body(st: RayBatch, spin, horizon, capture, dest, rlim, steplim, ctrl, method,
                     active):
-    """One lock-step RK4 iteration (the Euler branch is not ported)."""
-    if method != "rk4":
-        raise NotImplementedError(f"method {method!r} is not ported")
+    """One lock-step Euler or RK4 iteration."""
     st_eval = _safe_eval_state(st, active)
     (theta_flip, r_flip, rdot_sign, thetadot_sign, rwp, twp,
      pt1, pr1, ptheta1, pphi1, rates1) = _k1_stage(st_eval, spin)
@@ -293,26 +291,34 @@ def _euler_rk4_body(st: RayBatch, spin, horizon, capture, dest, rlim, steplim, c
         step = torch.minimum(step, lim)
 
     r0, th0 = st_eval.r, st_eval.theta
-    k, h, Q = st.k, st.h, st.Q
-    half = step / 2
-    pt2, pr2, pth2, pph2 = momentum_from_consts(
-        r0 + half * pr1, th0 + half * ptheta1, k, h, Q, rdot_sign, thetadot_sign, spin)
-    pt3, pr3, pth3, pph3 = momentum_from_consts(
-        r0 + half * pr2, th0 + half * pth2, k, h, Q, rdot_sign, thetadot_sign, spin)
-    pt4, pr4, pth4, pph4 = momentum_from_consts(
-        r0 + step * pr3, th0 + step * pth3, k, h, Q, rdot_sign, thetadot_sign, spin)
-    w = _sdiv(step, 6)
-    t_n = st.t + w * (pt1 + 2 * pt2 + 2 * pt3 + pt4)
-    r_n = r0 + w * (pr1 + 2 * pr2 + 2 * pr3 + pr4)
-    th_raw = th0 + w * (ptheta1 + 2 * pth2 + 2 * pth3 + pth4)
-    ph_n = st.phi + w * (pphi1 + 2 * pph2 + 2 * pph3 + pph4)
+    if method == "euler":  # the step is the k1 rates; they are the new momentum
+        t_n = st.t + pt1 * step
+        r_n = r0 + pr1 * step
+        th_raw = th0 + ptheta1 * step
+        ph_n = st.phi + pphi1 * step
+        mom = (pt1, pr1, ptheta1, pphi1)
+    else:
+        k, h, Q = st.k, st.h, st.Q
+        half = step / 2
+        pt2, pr2, pth2, pph2 = momentum_from_consts(
+            r0 + half * pr1, th0 + half * ptheta1, k, h, Q, rdot_sign, thetadot_sign, spin)
+        pt3, pr3, pth3, pph3 = momentum_from_consts(
+            r0 + half * pr2, th0 + half * pth2, k, h, Q, rdot_sign, thetadot_sign, spin)
+        pt4, pr4, pth4, pph4 = momentum_from_consts(
+            r0 + step * pr3, th0 + step * pth3, k, h, Q, rdot_sign, thetadot_sign, spin)
+        w = _sdiv(step, 6)
+        t_n = st.t + w * (pt1 + 2 * pt2 + 2 * pt3 + pt4)
+        r_n = r0 + w * (pr1 + 2 * pr2 + 2 * pr3 + pr4)
+        th_raw = th0 + w * (ptheta1 + 2 * pth2 + 2 * pth3 + pth4)
+        ph_n = st.phi + w * (pphi1 + 2 * pph2 + 2 * pph3 + pph4)
+        mom = (pt4, pr4, pth4, pph4)
 
     th_n, ph_n, thetadot_sign_r = _polar_reflect(th_raw, ph_n, thetadot_sign)
     thetadot_sign = torch.where(advance, thetadot_sign_r, thetadot_sign)
 
     return _commit(
         st, dest, rlim, capture, steplim, advance,
-        (t_n, r_n, th_n, ph_n), (pt4, pr4, pth4, pph4),
+        (t_n, r_n, th_n, ph_n), mom,
         _signs(active, st, rdot_sign, thetadot_sign, rwp, twp),
         (active, r_flip),
     )
@@ -519,8 +525,9 @@ def trace(
     Args:
       rays: the ray batch; rays with steps < 0 are dead padding.
       spin: black-hole spin a (Python float or 0-d tensor).
-      method: "rk4" | "rk45".
-      dest: termination surface (default ThetaLimit(pi/2), the disc plane).
+      method: "euler" | "rk4" | "rk45".
+      dest: termination surface (default ThetaLimit(pi/2), the disc plane);
+        ThetaLimit/FlatDisc or DiscWithISCO.
       r_max: outer radial limit (RAY_STATUS_RLIM); <= 0 disables.
       steplim: per-ray step budget; defaults to RK45_STEPLIM / STEPLIM.
       ctrl: step-size tuning constants.
@@ -528,8 +535,8 @@ def trace(
 
     The lock-step loop runs at most steplim + steplim // 4 + 16 iterations.
     """
-    if method not in ("rk4", "rk45"):
-        raise NotImplementedError(f"method {method!r} is not ported")
+    if method not in ("euler", "rk4", "rk45"):
+        raise ValueError(f"unknown method {method!r}")
     if dest is None:
         dest = ThetaLimit(math.pi / 2)
     if steplim is None:

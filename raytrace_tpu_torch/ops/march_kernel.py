@@ -3,7 +3,8 @@
 Counterpart of ``raytrace_tpu/ops/pallas_kernel.py::trace_pallas``: the
 kernel (``csrc/march.cu`` on the per-ray step of ``csrc/march.cuh``)
 marches every ray to termination in registers, one thread per ray, for
-``rk4`` and ``rk45`` with the ``ThetaLimit`` destination, in float32 (the
+``euler``, ``rk4`` and ``rk45`` with the ``ThetaLimit``/``FlatDisc``
+destination and ``rk4`` and ``rk45`` with ``DiscWithISCO``, in float32 (the
 default, as on the TPU) or float64. The plain version is
 ``ops/integrate.py::trace``; ``ops.trace_auto`` picks one of the two by the
 device of the batch.
@@ -25,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from raytrace_tpu_torch.destinations import ThetaLimit
+from raytrace_tpu_torch.destinations import DiscWithISCO, ThetaLimit
 from raytrace_tpu_torch.geometry.kerr import horizon_radius
 from raytrace_tpu_torch.ops.integrate import (
     StepControl,
@@ -48,7 +49,8 @@ F_FIELDS = (
 I_FIELDS = ("steps", "status", "rdot_flips", "equatorial_crossings")
 B_FIELDS = ("r_was_positive", "theta_was_positive")
 
-_METHOD_CODE = {"rk4": 1, "rk45": 2}
+_METHOD_CODE = {"rk4": 1, "rk45": 2, "euler": 3}
+_DEST_THETA, _DEST_ISCO = 0, 1
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 # Kernel launches so far: counted where the kernel is launched, nowhere else.
@@ -59,10 +61,12 @@ _lib = None
 
 def argtypes(stream: bool = True):
     """ctypes argument list of rt_march_launch (without the trailing stream
-    for the host build's rt_march_host)."""
+    for the host build's rt_march_host): 21 pointers, n, spin, r_max,
+    horizon, the destination code and its three parameters, steplim,
+    max_iters, the 11 StepControl values, method and dtype."""
     c = ctypes
-    types = [c.c_void_p] * 21 + [c.c_int64] + [c.c_double] * 4 + [c.c_int] * 2
-    types += [c.c_double] * 11 + [c.c_int, c.c_int]
+    types = [c.c_void_p] * 21 + [c.c_int64] + [c.c_double] * 3 + [c.c_int]
+    types += [c.c_double] * 3 + [c.c_int] * 2 + [c.c_double] * 11 + [c.c_int, c.c_int]
     return types + [c.c_void_p] if stream else types
 
 
@@ -119,11 +123,17 @@ def prepare(rays: RayBatch, spin, *, method, dest, r_max, steplim, ctrl: StepCon
     bool) and the scalar arguments of the launch. Raises on anything the
     kernel does not take."""
     if method not in _METHOD_CODE:
-        raise NotImplementedError(f"march kernel supports rk4 and rk45, got {method!r}")
+        raise NotImplementedError(f"march kernel supports euler, rk4 and rk45, got {method!r}")
     if dest is None:
         dest = ThetaLimit(math.pi / 2)
-    if type(dest) is not ThetaLimit:
-        raise NotImplementedError(f"march kernel supports ThetaLimit, got {type(dest).__name__}")
+    if type(dest) is ThetaLimit:
+        dest_args = [_DEST_THETA, float(dest.theta_lim), 0.0, 0.0]
+    elif type(dest) is DiscWithISCO and method != "euler":
+        dest_args = [_DEST_ISCO, float(dest.r_isco), float(dest.r_out), float(dest.theta_lim)]
+    else:
+        raise NotImplementedError(
+            "march kernel supports ThetaLimit with euler/rk4/rk45 and DiscWithISCO with "
+            f"rk4/rk45, got {type(dest).__name__} with {method}")
     if march_dtype not in _DTYPE_CODE:
         raise TypeError(f"march_dtype must be float32 or float64, got {march_dtype}")
     if rays.r.dtype not in _DTYPE_CODE:
@@ -147,7 +157,7 @@ def prepare(rays: RayBatch, spin, *, method, dest, r_max, steplim, ctrl: StepCon
     buf.update({f: fresh(getattr(rays, f), torch.bool) for f in B_FIELDS})
     c = ctrl
     scalars = [
-        n, float(spin), float(r_max), float(horizon), float(dest.theta_lim),
+        n, float(spin), float(r_max), float(horizon), *dest_args,
         int(steplim), int(max_iters),
         c.precision, c.theta_precision, c.max_tstep, c.maxtstep_rlim, c.max_phistep,
         c.min_step, c.rk45_tol, c.horizon_eps, c.safety, c.fac_min, c.fac_max,
@@ -183,7 +193,8 @@ def trace_kernel(
     refine_crossing: bool = True,
     march_dtype=torch.float32,
 ) -> RayBatch:
-    """CUDA-kernel twin of ``ops.integrate.trace`` (rk4/rk45, ThetaLimit).
+    """CUDA-kernel twin of ``ops.integrate.trace`` (euler/rk4/rk45 with
+    ThetaLimit, rk4/rk45 with DiscWithISCO).
 
     The batch must live on a CUDA device. Launches once on the current
     stream and does not synchronise; returns the same RayBatch contract as

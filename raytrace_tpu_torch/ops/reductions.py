@@ -1,14 +1,15 @@
 """Binned reductions over the ray axis.
 
-Counterpart of ``raytrace_tpu/ops/reductions.py``: a masked segment sum
-with a scrap bin for the rays outside the mask, as ``index_add_`` into an
-``n_bins + 1`` buffer. On a CUDA tensor ``index_add_`` adds with atomics in
-an order that changes from run to run: counts stay exact, float sums agree
-to rounding.
+Counterpart of ``raytrace_tpu/ops/reductions.py``: masked segment sums —
+radial bins and image pixels — with a scrap bin for the rays outside the
+mask, as ``index_add_`` into an ``n_bins + 1`` buffer. On a CUDA tensor
+``index_add_`` adds with atomics in an order that changes from run to run:
+counts stay exact, float sums agree to rounding.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -56,3 +57,19 @@ def radial_bin_profile(r, mask, weights: dict, r_min, dr, n_bins, logbin: bool):
     counts = masked_segment_sum(torch.ones_like(r), ids, m, n_bins)
     sums = {k: masked_segment_sum(v, ids, m, n_bins) for k, v in weights.items()}
     return counts, sums
+
+
+def pixel_accumulate(ix, iy, mask, weights: dict, nx: int, ny: int):
+    """Accumulate per-ray weights onto an (nx, ny) pixel grid; rays outside
+    the mask or the grid go to the scrap bin (imageplane_disc_image.cpp:122-176).
+    Returns (counts, {name: image})."""
+    m = mask & (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+    flat = ix.long() * ny + iy.long()
+
+    def scatter(v):
+        return masked_segment_sum(v, flat, m, nx * ny).reshape(nx, ny)
+
+    dtypes = [v.dtype for v in weights.values()] or [torch.float64]
+    dtype = functools.reduce(torch.promote_types, dtypes)
+    counts = scatter(torch.ones(flat.shape, dtype=dtype, device=flat.device))
+    return counts, {k: scatter(v) for k, v in weights.items()}

@@ -3,8 +3,9 @@
 The plain lock-step march (ops/integrate.py::trace) is held against JAX
 ``trace`` in f64 on the golden 0.05 grid (5,040 rays), and against the
 Pallas TPU kernel ``trace_pallas`` run in interpret mode in f32 on the 0.1
-grid (1,260 rays, one 4,096-ray block). The CUDA kernel (trace_kernel) is
-held against the plain march on the card only.
+grid (1,260 rays, one 4,096-ray block); the image-plane slice's variants
+are held the same way in tests/test_torch_march_image.py. The CUDA kernel
+(trace_kernel) is held against the plain march on the card only.
 
 Gates are count-based, as tests/test_native.py:22-36: photon-sphere
 separatrix rays are chaotic, so an ulp of difference in sin/cos between two
@@ -22,7 +23,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from raytrace_tpu_torch.destinations import ThetaLimit  # noqa: E402
+from raytrace_tpu_torch.destinations import DiscWithISCO, ThetaLimit  # noqa: E402
+from raytrace_tpu_torch.geometry import isco_radius  # noqa: E402
 from raytrace_tpu_torch.ops import march_kernel, trace  # noqa: E402
 from raytrace_tpu_torch.rays import from_numpy, to_numpy  # noqa: E402
 from raytrace_tpu_torch.sources import PointSourceGrid as PortGrid  # noqa: E402
@@ -31,6 +33,7 @@ from raytrace_tpu_torch.sources import point_source as port_point_source  # noqa
 SPIN = 0.998
 SOURCE = (0.0, 5.0, 1e-3, 1.5707)
 STEPLIM = 3000
+R_DISC = 20.0
 
 
 def _numpy_batch(rays):
@@ -149,9 +152,11 @@ def test_trace_kernel_refuses_cpu_tensors():
 @pytest.mark.parametrize(
     "kw, exc",
     [
-        (dict(method="euler"), NotImplementedError),
+        (dict(method="euler", dest=DiscWithISCO(1.2)), NotImplementedError),
         (dict(dest=object()), NotImplementedError),
         (dict(march_dtype=torch.float16), TypeError),
+        (dict(method="dopri"), NotImplementedError),
+        (dict(dest=DiscWithISCO(1.2), march_dtype=torch.int32), TypeError),
     ],
 )
 def test_kernel_wrapper_rejects_what_the_kernel_does_not_take(kw, exc):
@@ -179,9 +184,30 @@ def test_kernel_wrapper_buffers_follow_launch_order():
     assert all(buf[f].dtype == torch.int32 for f in march_kernel.I_FIELDS)
     assert all(buf[f].dtype == torch.bool for f in march_kernel.B_FIELDS)
     assert len(scalars) + 21 + 1 == len(march_kernel.argtypes(stream=True))
-    assert isinstance(dest, ThetaLimit) and scalars[6] == 100 + 25 + 16
+    assert isinstance(dest, ThetaLimit) and scalars[4:8] == [0, np.pi / 2, 0.0, 0.0]
+    assert scalars[9] == 100 + 25 + 16
     assert torch.equal(rays.r, r_before)
     assert (buf["dt"] > 0).all()  # rk45 step seeded
+
+
+@pytest.mark.parametrize("method", ["euler", "rk4", "rk45"])
+def test_kernel_wrapper_destination_arguments(method):
+    """The destination code and its three parameters, in the launch order
+    (r_isco, r_out, theta_lim for DiscWithISCO), as Python floats that the
+    kernel rounds once to the march dtype; Euler takes ThetaLimit only."""
+    rays = _port_source(0.4)
+    kw = dict(method=method, r_max=1000.0, steplim=100, ctrl=march_kernel.StepControl(),
+              boundary=None, march_dtype=torch.float32)
+    _, _, _, scalars = march_kernel.prepare(rays, SPIN, dest=ThetaLimit(-1.4), **kw)
+    assert scalars[4:8] == [0, -1.4, 0.0, 0.0]
+    assert scalars[-2] == {"rk4": 1, "rk45": 2, "euler": 3}[method]
+    isco = DiscWithISCO(isco_radius(SPIN), R_DISC)
+    if method == "euler":
+        with pytest.raises(NotImplementedError, match="DiscWithISCO"):
+            march_kernel.prepare(rays, SPIN, dest=isco, **kw)
+        return
+    _, dest, _, scalars = march_kernel.prepare(rays, SPIN, dest=isco, **kw)
+    assert dest is isco and scalars[4:8] == [1, isco_radius(SPIN), R_DISC, np.pi / 2]
 
 
 @pytest.mark.cuda
