@@ -17,10 +17,12 @@ script exits non-zero:
      launch count is zeroed before and read after each run. Then the
      kernel against the plain march on that run's own batch (the par
      file's lamppost after redshift_start, float32 march, the par file's
-     spin, kernel_steplim), with the float32 parity gates;
-  5. timing with CUDA events (best of 3 after a warm-up): the bench
-     workload of bench.py (0.01 grid, 125,800 rays) on the kernel, and the
-     kernel against the plain march on the 0.05 grid;
+     spin), with the float32 parity gates, as phase 12 holds its batches
+     (hold_full_width);
+  5. timing with CUDA events (kernel best of 3 after a warm-up, the plain
+     march one run): the bench workload of bench.py (0.01 grid, 125,800
+     rays) on the kernel, and the kernel against the plain march on the
+     0.05 grid;
   6. image parity: the DiscWithISCO (rk4, rk45) and Euler (ThetaLimit)
      instantiations against the plain march, float32 and float64, on the
      82 x 82 isco golden grid (image-plane rays marched with spin -0.998);
@@ -32,11 +34,37 @@ script exits non-zero:
      par_example/imageplane_disc_image.par (1,002,001 rays; main_isco also
      with --integrator=rk4, main also with --integrator=euler), the launch
      count zeroed before and read after each run, the FITS file read back;
-     then the kernel against the plain march on that batch: isco rk45 at
-     steplim 3000, euler x theta and isco rk4 at kernel_steplim, and the
-     rays that stick under RK45 (with their neighbours) at steplim 10,000;
+     then the kernel against the plain march on that batch
+     (hold_full_width): isco rk45, euler x theta and isco rk4;
   9. image timing with CUDA events: each new instantiation against its
-     plain version on the 82 x 82 grid, and the kernel at full width.
+     plain version on the 82 x 82 grid (the plain march's float32 run of
+     phase 6, timed there), and the kernel at full width;
+ 10. caustic parity: the caustics slice's instantiations against the plain
+     march at steplim 3000, float32 and float64, with CUDA-event times
+     (kernel best of 3, plain one run): euler x isco and euler/rk4/rk45 x
+     plane on 21 x 21 bundle grids of the discplane and plane goldens'
+     geometries, euler/rk4/rk45 x shell (float64) on the lamppost 0.05 grid
+     with SphericalShell(40) and the boundary at r = 2.5; the variants that
+     phase 12 compares at full width (the caustic runs' float64 ones, the
+     shell route's float32 ones) are left to it;
+ 11. caustic goldens through apps.caustics.compute on the card, float64
+     march, with the gates of tests/test_caustics.py:97-219; the discplane
+     golden again in float32 against analysis/tpu_validation.py's gates;
+ 12. caustic full width: main_discplane (also --integrator=euler),
+     main_plane (also --integrator=rk4) and main_sourceplane on
+     par_example/caustic_*.par (1,255,005 / 1,255,005 / 251,001 rays), the
+     launch count zeroed before and read after each run, the variant and
+     float64 checked at the route, the FITS file read back. Then the kernel
+     against the plain march on each run's own batch, and the
+     SphericalShell route on the bench grid (trace_auto, float32,
+     euler/rk4/rk45) on its batch (hold_full_width);
+ 13. caustic timing: the kernel at full width on each run's batch, with its
+     step median and maximum.
+A main path's batch is held against the plain march in full
+(hold_full_width): at kernel_steplim where no ray sticks, otherwise at
+STUCK_STEPLIM, so that every ray, stuck or not, is compared over its
+first STUCK_STEPLIM steps. On the card the plain march replays each
+compaction epoch's iteration as a CUDA graph (ops/integrate.py).
 The last two lines are the per-kernel JSON record and the device record.
 """
 
@@ -71,9 +99,37 @@ IMAGE_RUNS = (
 REPLACES = "raytrace_tpu/ops/pallas_kernel.py:96"
 SOURCE_FILE = "raytrace_tpu_torch/csrc/march.cu"
 BENCH_STEPLIM = {"rk4": 30_000, "rk45": 40_000}
-# cap of the plain-march comparison on the RK45 stuck rays (phase 8)
+# The plain march costs its lock-step iteration count, and a ray stuck at
+# kernel_steplim holds it for ~125k iterations: a batch with stuck rays is
+# compared at STUCK_STEPLIM (phases 4, 8, 12)
 STUCK_STEPLIM = 10_000
-
+CAUSTIC_PARFILES = {t: ROOT / "par_example" / f"caustic_{n}.par"
+                    for t, n in (("disc", "discplane"), ("plane", "plane"),
+                                 ("sphere", "sourceplane"))}
+CAUSTIC_MAINS = {"disc": "main_discplane", "plane": "main_plane", "sphere": "main_sourceplane"}
+# full-width runs: (target, extra argument, kernel variant it launches)
+CAUSTIC_RUNS = (
+    ("disc", None, "rk45_isco_f64"),
+    ("disc", "--integrator=euler", "euler_isco_f64"),
+    ("plane", None, "rk45_plane_f64"),
+    ("plane", "--integrator=rk4", "rk4_plane_f64"),
+    ("sphere", None, "rk45_theta_f64"),
+)
+# phase 10: (method, destination kind, march dtype)
+CAUSTIC_PARITY = (
+    [("euler", "isco", "float32")]
+    + [(m, "plane", "float32") for m in ("euler", "rk4", "rk45")] + [("euler", "plane", "float64")]
+    + [(m, "shell", "float64") for m in ("euler", "rk4", "rk45")]
+)
+SHELL = dict(r_shell=40.0, boundary=2.5)
+# the bound of a march: operations of one geodesic_rates evaluation
+# (csrc/march.cuh), counted once per common subexpression, with sin, cos,
+# sqrt and divide each one operation; evaluations per step; the card's peak
+# rates outside the tensor cores and its memory rate (H100 SXM data sheet)
+RATE_OPS = 60
+RATES_PER_STEP = {"euler": 1, "rk4": 4, "rk45": 6}
+PEAK_OPS = {"float32": 67e12, "float64": 34e12}
+HBM_BYTES_PER_S = 3.35e12
 
 class Phase:
     def __init__(self, name):
@@ -142,13 +198,6 @@ def image_rays(grid, dtype, torch, dist=500.0, incl=60.0, spin=SPIN):
     return redshift_start(rays, -spin, 0.0, reverse=True).to(dtype=dtype)
 
 
-def take(rays, idx):
-    """The rays of ``rays`` at the indices ``idx``."""
-    import dataclasses
-
-    return rays.replace(**{f.name: getattr(rays, f.name)[idx] for f in dataclasses.fields(rays)})
-
-
 def image_dest(kind, r_disc, spin=SPIN):
     """The destination of the isco app (DiscWithISCO) or of the plain one."""
     from raytrace_tpu_torch.destinations import DiscWithISCO, ThetaLimit
@@ -186,6 +235,22 @@ def image_golden_check(tag, out, path, n, count_tol, tols, min_pixels):
         check(devs[f] < tol, f"{tag}: {f} median dev {devs[f]:.3e} >= {tol}")
 
 
+def march_bound(out, method, march_dtype):
+    """(bound_ms, bound_by) of one march: the larger of its operations over
+    the peak rate of its dtype and its bytes over the memory rate. The
+    operations are RATE_OPS x RATES_PER_STEP x the steps of the rays that
+    ended without being stuck (steps > 0); the bytes are the 21 fields read
+    once and the 17 the kernel writes (11 floats, 4 counters, 2 gates)
+    written once per ray."""
+    name = str(march_dtype).replace("torch.", "")
+    size = 4 if name == "float32" else 8
+    steps = out.steps
+    ops = RATE_OPS * RATES_PER_STEP[method] * int(steps[steps > 0].sum())
+    nbytes = out.n_rays * ((15 * size + 18) + (11 * size + 18))
+    t_ops, t_bytes = ops / PEAK_OPS[name], nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
 def parity(a, b, live, dtype, torch):
     """Count-gated agreement of two marches of one batch (tests/test_native.py:22-36)."""
     import numpy as np
@@ -206,7 +271,8 @@ def parity(a, b, live, dtype, torch):
     med_dr = float(np.median(d[same]))
     med_rel = float(np.median(rel[same]))
     max_abs = float(d[same & eq_steps].max())
-    bitwise = float((eq_steps & (sa == sb) & (d == 0))[live].mean())
+    same_bits = eq_steps & (sa == sb) & (d == 0)
+    bitwise = float(same_bits[live].mean())
     nan_status = sorted({int(s) for s in sb[live & nan_b]})
     if dtype == torch.float64:
         ok = status_rate > 0.99 and steps_rate > 0.99 and med_dr < 1e-10
@@ -214,6 +280,7 @@ def parity(a, b, live, dtype, torch):
         ok = status_rate > 0.98 and steps_rate > 0.98 and med_rel < 1e-5
     return dict(status_rate=status_rate, steps_rate=steps_rate, median_dr=med_dr,
                 median_rel_dr=med_rel, max_abs_err=max_abs, bitwise_rate=bitwise,
+                not_bitwise=int((live & ~same_bits).sum()),
                 nan_r=int((live & (nan_a | nan_b)).sum()), nan_status=nan_status, ok=ok)
 
 
@@ -221,8 +288,123 @@ def parity_line(tag, p):
     return (f"parity {tag}: status {p['status_rate']:.5f} steps {p['steps_rate']:.5f} "
             f"median|dr| {p['median_dr']:.3e} median|dr|/r {p['median_rel_dr']:.3e} "
             f"max|dr| (equal status and steps) {p['max_abs_err']:.3e} "
-            f"bitwise (status, steps, r) {p['bitwise_rate']:.5f} "
+            f"bitwise (status, steps, r) {p['bitwise_rate']:.5f} ({p['not_bitwise']} rays not) "
             f"non-finite r {p['nan_r']} (plain statuses {p['nan_status']})")
+
+
+def caustic_batch(kind, dtype):
+    """Phase 10's batch of one surface, with the spin and the keywords of
+    its march: 21 x 21 caustic bundles of the discplane golden's geometry
+    (DiscWithISCO) or the plane golden's (FlatPlane), built as
+    apps.caustics.compute builds them in ``dtype`` and marched with -SPIN;
+    the lamppost 0.05 grid with SphericalShell and its boundary."""
+    import math
+
+    from raytrace_tpu_torch.destinations import DiscWithISCO, FlatPlane, SphericalShell
+    from raytrace_tpu_torch.geometry import isco_radius
+    from raytrace_tpu_torch.ops.redshift import redshift_start
+    from raytrace_tpu_torch.sources import ImagePlaneGrid, PointSourceGrid, image_plane_bundles
+
+    if kind == "shell":
+        return (lamppost(PointSourceGrid.from_steps(0.05, 0.05), dtype), SPIN,
+                dict(dest=SphericalShell(SHELL["r_shell"]), boundary=SHELL["boundary"],
+                     r_max=1000.0))
+    if kind == "isco":
+        grid = ImagePlaneGrid.from_steps(-12.0, 12.0, 1.2, -12.0, 12.0, 1.2)
+        incl, kw = 60.0, dict(dest=DiscWithISCO(isco_radius(SPIN), 20.0), r_max=550.0)
+    else:
+        grid = ImagePlaneGrid.from_steps(-10.0, 10.0, 1.0, -10.0, 10.0, 1.0)
+        incl, kw = 30.0, dict(dest=FlatPlane(math.radians(30.0), 0.0, 500.0), r_max=2000.0)
+    rays, _ = image_plane_bundles(500.0, incl, grid, SPIN, device="cuda", dtype=dtype)
+    return redshift_start(rays, -SPIN, 0.0, reverse=True), -SPIN, kw
+
+
+# the reference binary's caustic maps: (names, inclination, size, hit map)
+CAUSTIC_GOLDENS = {
+    "discplane": (("det_j", "sign_j", "order", "hit", "radius", "phi", "x_disc", "y_disc",
+                   "redshift"), 60, 81, "hit"),
+    "plane": (("det_j", "sign_j", "order", "hit", "x_s", "y_s", "rdot_flips", "equat_cross"),
+              30, 81, "hit"),
+    "sourceplane": (("det_j", "sign_j", "order", "escaped", "theta_s", "phi_s", "rdot_flips",
+                     "equat_cross"), 30, 82, "escaped"),
+}
+# gates: tests/test_caustics.py:97-219 (float64), analysis/tpu_validation.py:64,151-206 (f32)
+CAUSTIC_GATES = {
+    "discplane": dict(hit=(">", 0.985), radius=("<", 1e-5), redshift=("<", 1e-5),
+                      order=(">", 0.999), pixels=(">", 3000), det_median=("<", 0.02),
+                      det_p90=("<", 0.10), sign=(">", 0.99)),
+    "plane": dict(hit=(">", 0.985), x_s=("<", 1e-4), y_s=("<", 1e-4), order=(">", 0.999),
+                  pixels=(">", 2000), det_median=("<", 0.01), det_p90=("<", 0.05),
+                  sign=(">", 0.99)),
+    "sourceplane": dict(hit=(">", 0.999), theta_s=("<", 1e-7), phi_s=("<", 1e-7),
+                        order=(">", 0.999), pixels=(">", 4000), det_median=("<", 1e-4),
+                        det_p90=("<", 1e-3), sign=(">", 0.999)),
+    "discplane_f32": dict(hit=(">", 0.98), pixels=(">", 3000), radius=("<", 1e-3),
+                          det_median=("<", 0.10), good_frac=(">", 0.80)),
+}
+
+
+def caustic_golden_check(tag, app, maps, gates):
+    """Measure the caustic maps against the reference binary's and check
+    ``gates`` (a CAUSTIC_GATES entry)."""
+    import numpy as np
+
+    from raytrace_tpu_torch.apps.caustics import SENTINEL
+
+    names, incl, n, hit_key = CAUSTIC_GOLDENS[app]
+    raw = np.fromfile(ROOT / "tests" / "golden" / f"caustic_{app}_a0.998_i{incl}_rk45.bin", "<f8")
+    ref = {nm: raw[i * n * n:(i + 1) * n * n].reshape(n, n) for i, nm in enumerate(names)}
+    hm, hr = maps[hit_key].astype(bool), ref[hit_key] > 0.5
+    both = hm & hr
+    om, dm, dr = maps["order"], maps["det_j"], ref["det_j"]
+    ok = (both & np.isfinite(dm) & np.isfinite(dr) & (dm != SENTINEL) & (np.abs(dr) < 1e29)
+          & (om == ref["order"]))
+    rel = np.abs(dm[ok] / dr[ok] - 1)
+    same_sign = np.sign(dm[ok]) == np.sign(dr[ok])
+    v = dict(hit=(hm == hr).mean(), order=(om[both] == ref["order"][both]).mean(),
+             pixels=int(ok.sum()), det_median=np.median(rel), det_p90=np.percentile(rel, 90),
+             sign=same_sign.mean(), good_frac=((rel < 0.5) & same_sign).mean())
+    for f in ("radius", "redshift"):
+        if f in ref:
+            v[f] = np.median(np.abs(maps[f][both] / ref[f][both] - 1))
+    for f in ("x_s", "y_s", "theta_s"):
+        if f in ref:
+            v[f] = np.median(np.abs(maps[f][both] - ref[f][both]))
+    if "phi_s" in ref:
+        d = np.abs(maps["phi_s"][both] - ref["phi_s"][both])
+        v["phi_s"] = np.median(np.minimum(d, 2 * np.pi - d))
+    print(f"golden {tag}: " + ", ".join(f"{k} {float(x):.6g}" for k, x in v.items()))
+    for k, (op, lim) in gates.items():
+        check(v[k] > lim if op == ">" else v[k] < lim, f"{tag}: {k} {v[k]} not {op} {lim}")
+
+
+def hold_full_width(tag, rays, spin, method, kw, out, march_dtype, torch):
+    """The kernel against the plain march on a main path's own batch
+    ``rays``, whose kernel output at kernel_steplim is ``out``, in full: at
+    kernel_steplim where no ray stuck, otherwise at STUCK_STEPLIM. Returns
+    the parity record and (kernel ms, best of 3; plain ms, one run; bound
+    ms; bound_by) of the comparison."""
+    from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, trace
+    from raytrace_tpu_torch.rays import RAY_STATUS_STEPLIM
+
+    steps = out.steps.abs()
+    stuck = (out.status & RAY_STATUS_STEPLIM) != 0
+    steplim = STUCK_STEPLIM if bool(stuck.any()) else kernel_steplim(method)
+    print(f"main path {tag}: {int(stuck.sum())} rays stuck at kernel_steplim, "
+          f"{int((~stuck & (steps > steplim)).sum())} others past steplim {steplim}, "
+          f"max {int(steps.max())}")
+    k_ms, a = cuda_ms(lambda: march_kernel.trace_kernel(
+        rays, spin, method=method, steplim=steplim, march_dtype=march_dtype, **kw),
+        torch, warmup=False)
+    p_ms, b = cuda_ms(lambda: trace(rays, spin, method=method, steplim=steplim, **kw), torch,
+                      repeats=1, warmup=False)
+    p = parity(a, b, (rays.steps == 0).cpu().numpy(), march_dtype, torch)
+    b_ms, b_by = march_bound(a, method, march_dtype)
+    print(parity_line(f"full_{tag}", p) + f" | {rays.n_rays} rays, steplim {steplim}, "
+          f"kernel {k_ms:.3f} ms (best of 3), plain {p_ms:.1f} ms (one run), "
+          f"bound {b_ms:.4f} ms ({b_by})")
+    check(p["ok"], f"parity gates failed for full_{tag}: {p}")
+    return p, (k_ms, p_ms, b_ms, b_by)
 
 
 def main() -> int:
@@ -237,11 +419,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
-    from raytrace_tpu_torch.apps import emissivity, imageplane_disc_image
+    from raytrace_tpu_torch.apps import caustics, emissivity, imageplane_disc_image
     from raytrace_tpu_torch.config import Config
+    from raytrace_tpu_torch.destinations import SphericalShell
     from raytrace_tpu_torch.io import read_fits
-    from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, trace
-    from raytrace_tpu_torch.rays import RAY_STATUS_STEPLIM
+    from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, trace, trace_auto
     from raytrace_tpu_torch.sources import ImagePlaneGrid, PointSourceGrid
 
     with Phase("0 device"):
@@ -327,27 +509,15 @@ def main() -> int:
 
         # the kernel against the plain march on the main path's own batch:
         # built as compute builds it, marched in float32 as trace_auto marches
-        # it, with the par file's (unrounded) spin and kernel_steplim
+        # it, with the par file's (unrounded) spin
         rays = lamppost(par["grid"], torch.float32, spin=par["spin"],
                         source=par["source"], V=par["V"])
-        live = (rays.steps == 0).cpu().numpy()
         for method in ("rk45", "rk4"):
-            steplim = kernel_steplim(method)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            a = march_kernel.trace_kernel(rays, par["spin"], method=method, steplim=steplim)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            b = trace(rays, par["spin"], method=method, steplim=steplim)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            p = parity(a, b, live, torch.float32, torch)
-            tag = f"full_{method}_f32"
-            print(parity_line(tag, p) + f" | {int(live.sum())} live rays, steplim {steplim}, "
-                  f"kernel {t1 - t0:.3f} s, plain {t2 - t1:.3f} s (host clock)")
-            check(p["ok"], f"parity gates failed for {tag}: {p}")
-            full_parity[method] = p
-        del rays, a, b
+            out = march_kernel.trace_kernel(rays, par["spin"], method=method,
+                                            steplim=kernel_steplim(method))
+            full_parity[method], _ = hold_full_width(f"{method}_f32", rays, par["spin"], method,
+                                                     {}, out, torch.float32, torch)
+        del rays, out
 
     timing = {}
     with Phase("5 timing"):
@@ -367,13 +537,17 @@ def main() -> int:
                   f"{int((stuck & live).sum())} stuck")
 
             small = lamppost(golden_grid, torch.float32)
-            k_ms, _ = cuda_ms(lambda: march_kernel.trace_kernel(
+            k_ms, out = cuda_ms(lambda: march_kernel.trace_kernel(
                 small, SPIN, method=method, steplim=steplim), torch)
-            p_ms, _ = cuda_ms(lambda: trace(small, SPIN, method=method, steplim=steplim), torch)
+            p_ms, _ = cuda_ms(lambda: trace(small, SPIN, method=method, steplim=steplim), torch,
+                              repeats=1, warmup=False)
+            b_ms, b_by = march_bound(out, method, torch.float32)
             print(f"kernel vs plain {method} f32 (5,040 rays, steplim {steplim}): "
-                  f"kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, ratio {p_ms / k_ms:.1f}x")
-            timing[method] = (k_ms, p_ms)
+                  f"kernel {k_ms:.3f} ms (best of 3), plain {p_ms:.3f} ms (one run), "
+                  f"ratio {p_ms / k_ms:.1f}x, bound {b_ms:.4f} ms ({b_by})")
+            timing[f"{method}_theta"] = (k_ms, p_ms, b_ms, b_by)
 
+    image_plain_ms = {}
     with Phase("6 image parity"):
         isco_grid = ImagePlaneGrid.from_steps(-20.0, 20.0, 40.0 / 81, -20.0, 20.0, 40.0 / 81)
         for dtype in (torch.float32, torch.float64):
@@ -383,8 +557,9 @@ def main() -> int:
                 kw = dict(method=method, dest=image_dest(kind, 20.0), steplim=3000, r_max=550.0)
                 a = march_kernel.trace_kernel(rays, -SPIN, march_dtype=dtype, **kw)
                 torch.cuda.synchronize()
-                b = trace(rays, -SPIN, **kw)
-                torch.cuda.synchronize()
+                p_ms, b = cuda_ms(lambda: trace(rays, -SPIN, **kw), torch, repeats=1, warmup=False)
+                if dtype == torch.float32:
+                    image_plain_ms[method, kind] = p_ms
                 p = parity(a, b, live, dtype, torch)
                 tag = f"{method}_{kind}_{str(dtype).replace('torch.float', 'f')}"
                 print(parity_line(tag, p))
@@ -441,94 +616,28 @@ def main() -> int:
                       f"{wall:.3f} s, {n_image / wall:.4e} rays/s, DISCRAYS {n_disc}, "
                       f"{n_launch} kernel launch(es)")
 
-        # the isco kernel against the plain march on the main path's own
-        # batch. The plain march is launch-bound (~5 ms per lock-step
-        # iteration at 251k and at 1M rays alike), and under kernel_steplim
-        # (1e5) a few dozen stuck photon-sphere rays hold it for 125k
-        # iterations; steplim 3000 caps it at 3,766 while every other ray
-        # (99.99th percentile: ~2,000 steps) ends as on the main path
+        # the kernel against the plain march on the main path's own batch
         full_grid = ImagePlaneGrid.from_steps(-30.0, 30.0, 60.0 / nx, -30.0, 30.0, 60.0 / nx)
         rays = image_rays(full_grid, torch.float32, torch, dist=1e4, incl=80.0)
-        live = np.ones(full_grid.n_rays, dtype=bool)
-        kw = dict(method="rk45", dest=image_dest("isco", 30.0), steplim=3000, r_max=1.1e4)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a = march_kernel.trace_kernel(rays, -SPIN, **kw)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        b = trace(rays, -SPIN, **kw)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        p = parity(a, b, live, torch.float32, torch)
-        print(parity_line("full_rk45_isco_f32", p) + f" | {full_grid.n_rays} rays, steplim 3000, "
-              f"kernel {t1 - t0:.3f} s, plain {t2 - t1:.3f} s (host clock)")
-        check(p["ok"], f"parity gates failed for full_rk45_isco_f32: {p}")
-        full_parity["rk45_isco"] = p
-
-        # euler x theta and rk4 x isco at the main path's own kernel_steplim:
-        # no ray of this batch sticks with these methods (at most ~1,940
-        # steps), so the plain march ends with the slowest ray, ~10 s each
-        for method, kind in (("euler", "theta"), ("rk4", "isco")):
-            steplim = kernel_steplim(method)
-            kw = dict(method=method, dest=image_dest(kind, 30.0), steplim=steplim, r_max=1.1e4)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            a = march_kernel.trace_kernel(rays, -SPIN, **kw)
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            b = trace(rays, -SPIN, **kw)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            p = parity(a, b, live, torch.float32, torch)
-            tag = f"full_{method}_{kind}_f32"
-            print(parity_line(tag, p) + f" | {full_grid.n_rays} rays, steplim {steplim}, "
-                  f"kernel {t1 - t0:.3f} s, plain {t2 - t1:.3f} s (host clock)")
-            check(p["ok"], f"parity gates failed for {tag}: {p}")
-            full_parity[f"{method}_{kind}"] = p
-
-        # the RK45 stuck-ray tail: the rays that run to kernel_steplim on the
-        # main path, with their neighbours within two pixels, marched deeper
-        # than above. kernel_steplim itself would hold the plain march for
-        # ~125k launch-bound iterations (~11 min), so the cap is STUCK_STEPLIM
-        kw = dict(method="rk45", dest=image_dest("isco", 30.0), r_max=1.1e4)
-        a = march_kernel.trace_kernel(rays, -SPIN, steplim=kernel_steplim("rk45"), **kw)
-        stuck = ((a.status & RAY_STATUS_STEPLIM) != 0).nonzero().flatten().cpu()
-        ny = full_grid.ny
-        win = torch.arange(-2, 3)
-        ix = (stuck // ny)[:, None, None] + win[None, :, None]
-        iy = (stuck % ny)[:, None, None] + win[None, None, :]
-        inside = (ix >= 0) & (ix < full_grid.nx) & (iy >= 0) & (iy < ny)
-        idx = torch.unique((ix * ny + iy)[inside]).to("cuda")
-        sub = take(rays, idx)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        a = march_kernel.trace_kernel(sub, -SPIN, steplim=STUCK_STEPLIM, **kw)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        b = trace(sub, -SPIN, steplim=STUCK_STEPLIM, **kw)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        p = parity(a, b, np.ones(sub.n_rays, dtype=bool), torch.float32, torch)
-        n_cap = int(((b.status & RAY_STATUS_STEPLIM) != 0).sum())
-        print(parity_line("stuck_rk45_isco_f32", p) + f" | {len(stuck)} rays stuck at "
-              f"kernel_steplim, {sub.n_rays} with neighbours, steplim {STUCK_STEPLIM} "
-              f"({n_cap} reach it in the plain march), kernel {t1 - t0:.3f} s, "
-              f"plain {t2 - t1:.3f} s (host clock)")
-        check(len(stuck) > 0 and n_cap >= len(stuck), "stuck rays did not reach the cap")
-        check(p["ok"], f"parity gates failed for stuck_rk45_isco_f32: {p}")
-        del rays, sub, a, b
+        for method, kind in (("rk45", "isco"), ("euler", "theta"), ("rk4", "isco")):
+            kw = dict(dest=image_dest(kind, 30.0), r_max=1.1e4)
+            out = march_kernel.trace_kernel(rays, -SPIN, method=method,
+                                            steplim=kernel_steplim(method), **kw)
+            full_parity[f"{method}_{kind}"], _ = hold_full_width(
+                f"{method}_{kind}_f32", rays, -SPIN, method, kw, out, torch.float32, torch)
+        del rays, out
 
     with Phase("9 image timing"):
         rays = image_rays(isco_grid, torch.float32, torch)
         for method, kind in IMAGE_VARIANTS:
             kw = dict(method=method, dest=image_dest(kind, 20.0), steplim=3000, r_max=550.0)
-            k_ms, _ = cuda_ms(lambda: march_kernel.trace_kernel(rays, -SPIN, **kw), torch)
-            # the plain march (seconds a run) once: phase 6 ran it on this batch
-            p_ms, _ = cuda_ms(lambda: trace(rays, -SPIN, **kw), torch, repeats=1, warmup=False)
+            k_ms, out = cuda_ms(lambda: march_kernel.trace_kernel(rays, -SPIN, **kw), torch)
+            p_ms = image_plain_ms[method, kind]  # the plain march (seconds a run) of phase 6
+            b_ms, b_by = march_bound(out, method, torch.float32)
             print(f"kernel vs plain {method}/{kind} f32 (82 x 82 image-plane rays, steplim 3000): "
                   f"kernel {k_ms:.3f} ms (best of 3), plain {p_ms:.3f} ms (one run), "
-                  f"ratio {p_ms / k_ms:.1f}x")
-            timing[f"{method}_{kind}"] = (k_ms, p_ms)
+                  f"ratio {p_ms / k_ms:.1f}x, bound {b_ms:.4f} ms ({b_by})")
+            timing[f"{method}_{kind}"] = (k_ms, p_ms, b_ms, b_by)
         rays = image_rays(full_grid, torch.float32, torch, dist=1e4, incl=80.0)
         for method, kind in IMAGE_VARIANTS + (("rk45", "theta"),):
             kw = dict(method=method, dest=image_dest(kind, 30.0), steplim=kernel_steplim(method),
@@ -539,16 +648,157 @@ def main() -> int:
                   f"steps median {np.median(steps):.0f} max {steps.max()}")
         del rays
 
+    small_timing = {}
+    with Phase("10 caustic parity"):
+        for method, kind, dname in CAUSTIC_PARITY:
+            dtype = getattr(torch, dname)
+            rays, spin, kw = caustic_batch(kind, dtype)
+            kw = dict(kw, method=method, steplim=3000)
+            k_ms, a = cuda_ms(lambda: march_kernel.trace_kernel(rays, spin, march_dtype=dtype,
+                                                                **kw), torch)
+            p_ms, b = cuda_ms(lambda: trace(rays, spin, **kw), torch, repeats=1, warmup=False)
+            p = parity(a, b, (rays.steps == 0).cpu().numpy(), dtype, torch)
+            b_ms, b_by = march_bound(a, method, dtype)
+            tag = f"{method}_{kind}_{dname.replace('float', 'f')}"
+            print(parity_line(tag, p) + f" | {rays.n_rays} rays, kernel {k_ms:.3f} ms (best of 3), "
+                  f"plain {p_ms:.1f} ms (one run), ratio {p_ms / k_ms:.0f}x, "
+                  f"bound {b_ms:.4f} ms ({b_by})")
+            check(p["ok"], f"parity gates failed for {tag}: {p}")
+            small_timing[tag] = (k_ms, p_ms, b_ms, b_by)
+        del rays, a, b
+
+    with Phase("11 caustic goldens"):
+        before = march_kernel.launches
+        disc_grid = ImagePlaneGrid.from_steps(-12.0, 12.0, 0.3, -12.0, 12.0, 0.3)
+        disc_kw = dict(target="disc", r_disc=20.0, method="rk45", steplim=60000, device="cuda")
+        maps = caustics.compute(SPIN, 500.0, 60.0, disc_grid, **disc_kw)
+        caustic_golden_check("discplane (rk45 f64, 81 x 81 bundles)", "discplane", maps,
+                             CAUSTIC_GATES["discplane"])
+        maps = caustics.compute(SPIN, 500.0, 60.0, disc_grid, dtype=torch.float32, **disc_kw)
+        caustic_golden_check("discplane (rk45 f32, the TPU's envelope)", "discplane", maps,
+                             CAUSTIC_GATES["discplane_f32"])
+        maps = caustics.compute(SPIN, 500.0, 30.0,
+                                ImagePlaneGrid.from_steps(-10.0, 10.0, 0.25, -10.0, 10.0, 0.25),
+                                target="plane", z_s=500.0, method="rk45", steplim=100000,
+                                device="cuda")
+        caustic_golden_check("plane (rk45 f64, 81 x 81 bundles)", "plane", maps,
+                             CAUSTIC_GATES["plane"])
+        dx = 24.0 / 81
+        maps = caustics.compute(SPIN, 500.0, 30.0,
+                                ImagePlaneGrid.from_steps(-12.0, 12.0, dx, -12.0, 12.0, dx),
+                                target="sphere", r_lim=1000.0, method="rk45", steplim=100000,
+                                device="cuda")
+        caustic_golden_check("sourceplane (rk45 f64, 82 x 82)", "sourceplane", maps,
+                             CAUSTIC_GATES["sourceplane"])
+        check(march_kernel.launches == before + 4, "a caustic golden run did not launch the kernel")
+
+    runs = {}
+    with Phase("12 caustic full width"):
+        seen = {}
+        real_route = caustics.trace_auto
+
+        def route(rays, spin, **kw):  # records what the main path marched, and how
+            out = real_route(rays, spin, **kw)
+            seen.update(rays=rays, spin=spin, kw=kw, out=out)
+            return out
+
+        caustics.trace_auto = route
+        try:
+            with tempfile.TemporaryDirectory() as tmp:
+                for target, extra, variant in CAUSTIC_RUNS:
+                    outfile = Path(tmp) / f"{variant}.fits"
+                    argv = [f"--parfile={CAUSTIC_PARFILES[target]}", f"--outfile={outfile}"]
+                    if extra:
+                        argv.append(extra)
+                    cli = caustics.compute_args(Config(argv), target)[0]
+                    march_kernel.launches = 0
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    rc = getattr(caustics, CAUSTIC_MAINS[target])(argv)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+                    n_launch = march_kernel.launches
+                    launches[variant] = n_launch
+                    rays, kw = seen["rays"], dict(seen["kw"])
+                    method = kw.pop("method")
+                    march_dtype = kw.pop("march_dtype")
+                    kw.pop("steplim")
+                    kind = {"DiscWithISCO": "isco", "FlatPlane": "plane",
+                            "ThetaLimit": "theta"}[type(kw["dest"]).__name__]
+                    check(rc == 0, f"{CAUSTIC_MAINS[target]} returned {rc}")
+                    check(n_launch > 0, f"main path ({target} {extra or ''}) never launched the "
+                                        "kernel")
+                    check(f"{method}_{kind}_f64" == variant and march_dtype == torch.float64
+                          and rays.r.dtype == torch.float64,
+                          f"{target} {extra or ''} marched {method} x {kind} in {march_dtype}")
+                    fits = read_fits(str(outfile))
+                    shape = (cli["grid"].nx, cli["grid"].ny)
+                    for ext, _ in caustics._EXTENSIONS[target]:
+                        check(fits[ext].shape == shape, f"{ext} shape {fits[ext].shape}")
+                        check(np.isfinite(fits[ext]).all(), f"non-finite {ext}")
+                    hit_ext = {"disc": "HIT", "plane": "HIT_PLANE", "sphere": "ESCAPED"}[target]
+                    hits = int(fits[hit_ext].sum())
+                    check(hits > 0, f"{target}: no hits")
+                    print(f"full width {CAUSTIC_MAINS[target]} {extra or ''} ({variant}): "
+                          f"{rays.n_rays} rays, wall {wall:.3f} s, {rays.n_rays / wall:.4e} rays/s, "
+                          f"{hits} hits of {shape[0] * shape[1]} pixels, {n_launch} kernel "
+                          f"launch(es)")
+                    runs[variant] = (rays, seen["spin"], kw, method, seen["out"])
+                    seen.clear()
+        finally:
+            caustics.trace_auto = real_route
+
+        # the SphericalShell route (trace_auto, float32) on the bench grid
+        bench_grid = PointSourceGrid.from_steps(0.01, 0.01)
+        bench = lamppost(bench_grid, torch.float32)
+        shell_kw = dict(dest=SphericalShell(SHELL["r_shell"]), boundary=SHELL["boundary"])
+        for method in ("euler", "rk4", "rk45"):
+            variant = f"{method}_shell_f32"
+            march_kernel.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = trace_auto(bench, SPIN, method=method, **shell_kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[variant] = march_kernel.launches
+            check(launches[variant] > 0, f"the shell route ({method}) never launched the kernel")
+            print(f"shell route {method} (bench grid, {bench.n_rays} rays, float32): wall "
+                  f"{wall:.3f} s, {launches[variant]} kernel launch(es)")
+            runs[variant] = (bench, SPIN, shell_kw, method, out)
+
+        full_timing = {}
+        for variant, (rays, spin, kw, method, out) in runs.items():
+            full_parity[variant], full_timing[variant] = hold_full_width(
+                variant, rays, spin, method, kw, out, rays.r.dtype, torch)
+
+    with Phase("13 caustic timing"):
+        for tag, (k_ms, p_ms, b_ms, b_by) in small_timing.items():
+            print(f"kernel vs plain {tag} (phase 10 grid, steplim 3000): kernel {k_ms:.3f} ms, "
+                  f"plain {p_ms:.1f} ms, ratio {p_ms / k_ms:.0f}x, bound {b_ms:.4f} ms ({b_by})")
+        for variant, (rays, spin, kw, method, _) in runs.items():
+            steplim = kernel_steplim(method)
+            ms, out = cuda_ms(lambda: march_kernel.trace_kernel(
+                rays, spin, method=method, steplim=steplim, march_dtype=rays.r.dtype, **kw),
+                torch, repeats=2, warmup=False)
+            steps = np.abs(out.steps.cpu().numpy())
+            b_ms, b_by = march_bound(out, method, rays.r.dtype)
+            print(f"kernel {variant} at full width ({rays.n_rays} rays, steplim {steplim}): "
+                  f"{ms:.3f} ms (best of 2), steps median {np.median(steps):.0f} max "
+                  f"{steps.max()}, bound {b_ms:.4f} ms ({b_by})")
+        runs.clear()
+
     print(f"nvidia-smi: {smi_line()}")
-    # (name, variant key, where its max_abs_err was measured)
+    # (name, variant key, where its max_abs_err was measured, its timing)
     records = [
-        ("geodesic_march_rk45_f32", "rk45_theta", full_parity["rk45"]),
-        ("geodesic_march_rk4_f32", "rk4_theta", full_parity["rk4"]),
-        ("geodesic_march_euler_f32", "euler_theta", full_parity["euler_theta"]),
-        ("geodesic_march_rk4_isco_f32", "rk4_isco", full_parity["rk4_isco"]),
-        ("geodesic_march_rk45_isco_f32", "rk45_isco", full_parity["rk45_isco"]),
-    ]
-    timing_key = {"rk45_theta": "rk45", "rk4_theta": "rk4"}
+        ("geodesic_march_rk45_f32", "rk45_theta", full_parity["rk45"], timing["rk45_theta"]),
+        ("geodesic_march_rk4_f32", "rk4_theta", full_parity["rk4"], timing["rk4_theta"]),
+        ("geodesic_march_euler_f32", "euler_theta", full_parity["euler_theta"],
+         timing["euler_theta"]),
+        ("geodesic_march_rk4_isco_f32", "rk4_isco", full_parity["rk4_isco"], timing["rk4_isco"]),
+        ("geodesic_march_rk45_isco_f32", "rk45_isco", full_parity["rk45_isco"],
+         timing["rk45_isco"]),
+    ] + [(f"geodesic_march_{v.replace('_theta', '')}", v, full_parity[v], full_timing[v])
+         for v in [r[2] for r in CAUSTIC_RUNS] + [f"{m}_shell_f32" for m in ("euler", "rk4", "rk45")]]
     kernels = [
         {
             "name": name,
@@ -557,10 +807,13 @@ def main() -> int:
             "replaces": REPLACES,
             "launches": launches[variant],
             "max_abs_err": p["max_abs_err"],
-            "ms": timing[timing_key.get(variant, variant)][0],
-            "plain_ms": timing[timing_key.get(variant, variant)][1],
+            "ms": t[0],
+            "plain_ms": t[1],
+            "bound_ms": t[2],
+            "bound_by": t[3],
+            "library_ms": None,
         }
-        for name, variant, p in records
+        for name, variant, p, t in records
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

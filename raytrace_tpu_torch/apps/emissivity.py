@@ -12,6 +12,8 @@ by default, the destination's 4-velocity redshift.
 Output: 7 text columns (r, area, N_rays, flux, emis, <g>, <t>).
 
     python -m raytrace_tpu_torch.apps.emissivity --parfile=par_example/emissivity.par [--device=cuda|cpu]
+
+runs on the card unless ``--device=cpu`` is given.
 """
 
 from __future__ import annotations
@@ -20,8 +22,8 @@ import math
 import sys
 
 import numpy as np
-import torch
 
+from raytrace_tpu_torch.apps import app_device, require_device
 from raytrace_tpu_torch.config import Config
 from raytrace_tpu_torch.destinations import FlatDisc
 from raytrace_tpu_torch.geometry import integrate_disc_area_bins, isco_radius
@@ -81,7 +83,9 @@ def compute(
     """Run the emissivity pipeline on ``device``; returns a dict of per-bin
     numpy columns. Sources, redshifts and bins are built in float64; the
     march goes through ``trace_auto``: the CUDA kernel in float32 for a
-    CUDA device, the plain march (float64) otherwise."""
+    CUDA device, the plain march (float64) otherwise. A CUDA device with
+    no card visible raises."""
+    device = require_device(device)
     r_isco = isco_radius(spin)
     if r_min is None or r_min < 0:
         r_min = float(r_isco)
@@ -161,7 +165,7 @@ def compute_args(cfg: Config, variant: str = "plain") -> dict:
     gamma = cfg.get("gamma", float, 2.0)
     method = cfg.get("integrator", str, "rk4" if variant == "rd" else "rk45").lower()
     steplim = cfg.get("steplim", int, -1)
-    device = torch.device(cfg.get("device", str, "cuda" if torch.cuda.is_available() else "cpu"))
+    device = app_device(cfg)
     return dict(
         spin=spin,
         source=source,

@@ -16,7 +16,8 @@ reference ``imageplane_disc_image*.cpp``):
 
     python -m raytrace_tpu_torch.apps.imageplane_disc_image --parfile=par_example/imageplane_disc_image.par [--device=cuda|cpu]
 
-runs ``main``; ``main_rd`` and ``main_isco`` take the same arguments.
+runs ``main`` on the card unless ``--device=cpu`` is given; ``main_rd`` and
+``main_isco`` take the same arguments.
 """
 
 from __future__ import annotations
@@ -27,6 +28,7 @@ import sys
 import numpy as np
 import torch
 
+from raytrace_tpu_torch.apps import app_device, require_device
 from raytrace_tpu_torch.config import Config
 from raytrace_tpu_torch.destinations import DiscWithISCO, FlatDisc, ThetaLimit
 from raytrace_tpu_torch.geometry import isco_radius
@@ -148,9 +150,9 @@ def compute(
     The batch is built, redshifted and binned in float64; the march goes
     through ``trace_auto``: the CUDA kernel in float32 for a CUDA device,
     the plain march in float64 otherwise. The image plane's knife-edge floor
-    is set for the march's dtype.
+    is set for the march's dtype. A CUDA device with no card visible raises.
     """
-    device = torch.device(device)
+    device = require_device(device)
     img_nx = img_nx or grid.nx
     img_ny = img_ny or grid.ny
     a_trace = -spin  # propagation uses the negated spin (imageplane.cpp:12)
@@ -217,7 +219,7 @@ def _main(variant):
         # reference par keys (imageplane_disc_image.par_example)
         precision = cfg.get("precision", float, 100.0)
         max_tstep = cfg.get("max_tstep", float, 1.0)
-        device = torch.device(cfg.get("device", str, "cuda" if torch.cuda.is_available() else "cpu"))
+        device = app_device(cfg)
 
         # ray-grid spacing convention of the app (imageplane_disc_image.cpp:79):
         # dx = (xmax - x0)/Nx, and the plane then carries Nx+1 rays per axis

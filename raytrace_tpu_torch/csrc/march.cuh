@@ -41,11 +41,18 @@ constexpr int METHOD_RK4 = 1;
 constexpr int METHOD_RK45 = 2;
 constexpr int METHOD_EULER = 3;
 
-// Destinations (destinations.py): the parameters p0..p2 of Params are
-//   DEST_THETA  ThetaLimit / FlatDisc   (theta_lim, -, -)
-//   DEST_ISCO   DiscWithISCO            (r_isco, r_out, theta_lim)
+// Destinations (destinations.py): the parameters p0..p3 of Params are
+//   DEST_THETA  ThetaLimit / FlatDisc   (theta_lim, -, -, -)
+//   DEST_ISCO   DiscWithISCO            (r_isco, r_out, theta_lim, -)
+//   DEST_PLANE  FlatPlane               (sin incl, cos incl, phi0, z_s)
+//   DEST_SHELL  SphericalShell          (r_shell, -, -, -)
+// FlatPlane's sin and cos of the inclination are made once in double on the
+// host (math.sin, as the plain FlatPlane makes them) and rounded to T like
+// the other parameters, so no step evaluates them in T.
 constexpr int DEST_THETA = 0;
 constexpr int DEST_ISCO = 1;
+constexpr int DEST_PLANE = 2;
+constexpr int DEST_SHELL = 3;
 
 constexpr double PI = 3.14159265358979323846;
 
@@ -115,10 +122,10 @@ template <typename T> struct Spin {
 };
 
 // Scalars of one march: spin, outer radius, the inner absorbing radius and
-// the destination's three parameters (see DEST_*), plus the step budgets.
+// the destination's four parameters (see DEST_*), plus the step budgets.
 template <typename T> struct Params {
   Spin<T> spin;
-  T r_max, horizon, p0, p1, p2;
+  T r_max, horizon, p0, p1, p2, p3;
   int steplim, max_iters;
   Ctrl<T> c;
 };
@@ -196,10 +203,15 @@ template <typename T> RT_HD bool in_annulus(const Params<T>& p, T r) {
 
 // Destination.reached after a committed step from prev_theta. DiscWithISCO
 // stops only where theta crossed |theta_lim| since the previous step, from
-// either side, inside the annulus; theta_lim == 0 never stops.
+// either side, inside the annulus; theta_lim == 0 never stops. FlatPlane
+// stops where the projection onto the line of sight (FlatPlane.projection,
+// same operand order) is at or below -z_s; SphericalShell at r >= r_shell.
 template <int DEST, typename T>
-RT_HD bool dest_reached(const Params<T>& p, T r, T theta, T prev_theta) {
+RT_HD bool dest_reached(const Params<T>& p, T r, T theta, T phi, T prev_theta) {
   if (DEST == DEST_THETA) return theta_reached(p.p0, theta);
+  if (DEST == DEST_PLANE)
+    return r * (m_sin(theta) * p.p0 * m_cos(phi - p.p2) + m_cos(theta) * p.p1) <= -p.p3;
+  if (DEST == DEST_SHELL) return r >= p.p0;
   const T tl = p.p2;
   const T lim = tl > 0 ? tl : -tl;
   const bool crossed = (prev_theta < lim && theta >= lim) || (prev_theta > lim && theta <= lim);
@@ -207,10 +219,14 @@ RT_HD bool dest_reached(const Params<T>& p, T r, T theta, T prev_theta) {
 }
 
 // Destination.step_limit at the step's starting point: DiscWithISCO clamps
-// onto its surface only where the step starts inside the annulus.
+// onto its surface only where the step starts inside the annulus;
+// SphericalShell caps the step along pr where the ray climbs towards the
+// shell from inside; FlatPlane has no cap (the base Destination's +inf).
 template <int DEST, typename T>
-RT_HD T dest_step_limit(const Params<T>& p, T r, T theta, T ptheta) {
+RT_HD T dest_step_limit(const Params<T>& p, T r, T theta, T pr, T ptheta) {
   if (DEST == DEST_THETA) return theta_step_limit(p.p0, theta, ptheta);
+  if (DEST == DEST_PLANE) return Lim<T>::inf();
+  if (DEST == DEST_SHELL) return (pr > 0 && r < p.p0) ? (p.p0 - r) / pr : Lim<T>::inf();
   return in_annulus(p, r) ? theta_step_limit(p.p2, theta, ptheta) : Lim<T>::inf();
 }
 
@@ -281,7 +297,7 @@ RT_HD void commit(Ray<T>& ray, const Params<T>& p, T capture, T t, T r, T theta,
     ray.status |= STATUS_HORIZON;
   else if (p.r_max > 0 && r >= p.r_max)
     ray.status |= STATUS_RLIM;
-  else if (dest_reached<DEST>(p, r, theta, prev_theta))
+  else if (dest_reached<DEST>(p, r, theta, phi, prev_theta))
     ray.status |= STATUS_DEST;
 }
 
@@ -392,7 +408,7 @@ RT_HD void rk45_step(Ray<T>& ray, const Params<T>& p, T capture, T& step, Rates<
   if (step > step_max) step = step_max;
 
   // destination clamp: a clamped accepted step keeps the old step size
-  const T lim = dest_step_limit<DEST>(p, r, theta, pth1);
+  const T lim = dest_step_limit<DEST>(p, r, theta, pr1, pth1);
   const bool clamped = lim < step;
   const T h_try = clamped ? lim : step;
 
@@ -529,6 +545,7 @@ inline Params<T> make_params(double spin, double r_max, double horizon, const do
   p.p0 = T(dest[0]);
   p.p1 = T(dest[1]);
   p.p2 = T(dest[2]);
+  p.p3 = T(dest[3]);
   p.steplim = steplim;
   p.max_iters = max_iters;
   p.c = Ctrl<T>{T(ctrl[0]), T(ctrl[1]), T(ctrl[2]), T(ctrl[3]), T(ctrl[4]), T(ctrl[5]),

@@ -18,15 +18,13 @@ void run(const rt::Params<T>& p, const rt::Fields<T>& f, int64_t n) {
 
 template <typename T, int METHOD>
 int run_dest(int dest, const rt::Params<T>& p, const rt::Fields<T>& f, int64_t n) {
-  if (dest == rt::DEST_THETA)
-    run<T, METHOD, rt::DEST_THETA>(p, f, n);
-  else if constexpr (METHOD == rt::METHOD_EULER)  // Euler with DiscWithISCO: not built
-    return 1;
-  else if (dest == rt::DEST_ISCO)
-    run<T, METHOD, rt::DEST_ISCO>(p, f, n);
-  else
-    return 1;
-  return 0;
+  switch (dest) {
+    case rt::DEST_THETA: run<T, METHOD, rt::DEST_THETA>(p, f, n); return 0;
+    case rt::DEST_ISCO: run<T, METHOD, rt::DEST_ISCO>(p, f, n); return 0;
+    case rt::DEST_PLANE: run<T, METHOD, rt::DEST_PLANE>(p, f, n); return 0;
+    case rt::DEST_SHELL: run<T, METHOD, rt::DEST_SHELL>(p, f, n); return 0;
+    default: return 1;
+  }
 }
 
 template <typename T>
@@ -42,33 +40,46 @@ int run_all(void* const* ptr, int64_t n, double spin, double r_max, double horiz
   return 1;
 }
 
-template <typename T>
-void isco_reached_all(const T* r, const T* theta, const T* prev_theta, int64_t n,
-                      const double* dest_params, bool* out) {
+template <typename T, int DEST>
+void reached_all(const void* const* pts, int64_t n, const double* dest_params, bool* out) {
+  const T* r = static_cast<const T*>(pts[0]);
+  const T* theta = static_cast<const T*>(pts[1]);
+  const T* phi = static_cast<const T*>(pts[2]);
+  const T* prev_theta = static_cast<const T*>(pts[3]);
   const double ctrl[11] = {};
   const rt::Params<T> p = rt::make_params<T>(0.0, 0.0, 0.0, dest_params, 0, 0, ctrl);
   for (int64_t i = 0; i < n; ++i)
-    out[i] = rt::dest_reached<rt::DEST_ISCO>(p, r[i], theta[i], prev_theta[i]);
+    out[i] = rt::dest_reached<DEST>(p, r[i], theta[i], phi[i], prev_theta[i]);
+}
+
+template <typename T>
+int reached_dest(int dest, const void* const* pts, int64_t n, const double* dest_params,
+                 bool* out) {
+  switch (dest) {
+    case rt::DEST_THETA: reached_all<T, rt::DEST_THETA>(pts, n, dest_params, out); return 0;
+    case rt::DEST_ISCO: reached_all<T, rt::DEST_ISCO>(pts, n, dest_params, out); return 0;
+    case rt::DEST_PLANE: reached_all<T, rt::DEST_PLANE>(pts, n, dest_params, out); return 0;
+    case rt::DEST_SHELL: reached_all<T, rt::DEST_SHELL>(pts, n, dest_params, out); return 0;
+    default: return 1;
+  }
 }
 
 }  // namespace
 
-// DiscWithISCO.reached on n given points, with the destination's parameters
-// built by make_params as the march builds them: the CPU tests hold the
-// rounding of the annulus edges to the plain march's, one ulp at a time.
-extern "C" int rt_isco_reached_host(const void* r, const void* theta, const void* prev_theta,
-                                    int64_t n, double r_isco, double r_out, double theta_lim,
-                                    int dtype, bool* out) {
-  const double dest_params[3] = {r_isco, r_out, theta_lim};
-  if (dtype == 0)
-    isco_reached_all(static_cast<const float*>(r), static_cast<const float*>(theta),
-                     static_cast<const float*>(prev_theta), n, dest_params, out);
-  else if (dtype == 1)
-    isco_reached_all(static_cast<const double*>(r), static_cast<const double*>(theta),
-                     static_cast<const double*>(prev_theta), n, dest_params, out);
-  else
-    return 1;
-  return 0;
+// Destination.reached on n given points (r, theta, phi, prev_theta), with
+// the destination's code and parameters as rt_march_host takes them, built
+// by make_params as the march builds them: the CPU tests hold the rounding
+// of the surfaces (DiscWithISCO's annulus edges, FlatPlane's projection) to
+// the plain march's, one ulp at a time.
+extern "C" int rt_reached_host(const void* r, const void* theta, const void* phi,
+                               const void* prev_theta, int64_t n, int dest, double dest_p0,
+                               double dest_p1, double dest_p2, double dest_p3, int dtype,
+                               bool* out) {
+  const void* const pts[4] = {r, theta, phi, prev_theta};
+  const double dest_params[4] = {dest_p0, dest_p1, dest_p2, dest_p3};
+  if (dtype == 0) return reached_dest<float>(dest, pts, n, dest_params, out);
+  if (dtype == 1) return reached_dest<double>(dest, pts, n, dest_params, out);
+  return 1;
 }
 
 extern "C" int rt_march_host(void* t, void* r, void* theta, void* phi, void* pt, void* pr,
@@ -77,16 +88,17 @@ extern "C" int rt_march_host(void* t, void* r, void* theta, void* phi, void* pt,
                              void* steps, void* status, void* rdot_flips, void* eq_cross,
                              void* r_was_positive, void* theta_was_positive, int64_t n,
                              double spin, double r_max, double horizon, int dest,
-                             double dest_p0, double dest_p1, double dest_p2, int steplim,
-                             int max_iters, double precision, double theta_precision,
-                             double max_tstep, double maxtstep_rlim, double max_phistep,
-                             double min_step, double rk45_tol, double horizon_eps,
+                             double dest_p0, double dest_p1, double dest_p2, double dest_p3,
+                             int steplim, int max_iters, double precision,
+                             double theta_precision, double max_tstep, double maxtstep_rlim,
+                             double max_phistep, double min_step, double rk45_tol,
+                             double horizon_eps,
                              double safety, double fac_min, double fac_max, int method,
                              int dtype) {
   void* const ptr[21] = {t, r, theta, phi, pt, pr, ptheta, pphi, k, h, Q,
                          rdot_sign, thetadot_sign, dt, emit, steps, status,
                          rdot_flips, eq_cross, r_was_positive, theta_was_positive};
-  const double dest_params[3] = {dest_p0, dest_p1, dest_p2};
+  const double dest_params[4] = {dest_p0, dest_p1, dest_p2, dest_p3};
   const double ctrl[11] = {precision, theta_precision, max_tstep, maxtstep_rlim,
                            max_phistep, min_step, rk45_tol, horizon_eps,
                            safety, fac_min, fac_max};

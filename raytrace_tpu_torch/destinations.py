@@ -3,10 +3,10 @@
 Counterpart of ``raytrace_tpu/destinations.py``: ``ThetaLimit`` (alias
 ``FlatDisc``), the reference's plain ``thetalim`` mode (raytracer.cpp:172) —
 theta_lim > 0 stops at theta >= theta_lim, theta_lim < 0 stops at
-theta <= |theta_lim|, theta_lim == 0 never stops on theta — and the
-crossing-aware annulus ``DiscWithISCO``. Parameters are Python floats. The
-``FlatPlane``, ``SphericalShell`` and ``RadialVelocityField`` surfaces are
-not ported yet.
+theta <= |theta_lim|, theta_lim == 0 never stops on theta — the
+crossing-aware annulus ``DiscWithISCO``, the caustic apps' source plane
+``FlatPlane`` and the far sphere ``SphericalShell``. Parameters are Python
+floats. ``RadialVelocityField`` is not ported yet.
 """
 
 from __future__ import annotations
@@ -46,9 +46,13 @@ def _theta_step_limit(tl, theta, ptheta):
 
 class Destination:
     """Base of the surfaces: ``reached(r, theta, phi, prev_theta)`` after
-    every step, ``step_limit(r, theta, phi, pr, ptheta, pphi)`` before it,
-    and the 4-velocity of the material at the surface for redshifts —
-    Keplerian circular orbits unless a surface says otherwise."""
+    every step, ``step_limit(r, theta, phi, pr, ptheta, pphi)`` before it
+    (+inf unless a surface caps the step, ray_destination.h:55-57), and the
+    4-velocity of the material at the surface for redshifts — Keplerian
+    circular orbits unless a surface says otherwise."""
+
+    def step_limit(self, r, theta, phi, pr, ptheta, pphi):
+        return torch.full_like(r, math.inf)
 
     def four_velocity(self, r, theta, phi, spin):
         return _keplerian_four_velocity(r, theta, spin)
@@ -108,3 +112,63 @@ class DiscWithISCO(Destination):
         the annulus."""
         lim = _theta_step_limit(self.theta_lim, theta, ptheta)
         return torch.where(self._in_annulus(r), lim, torch.full_like(lim, math.inf))
+
+
+@dataclasses.dataclass(frozen=True)
+class FlatPlane(Destination):
+    """Flat lensing source plane perpendicular to the observer's line of
+    sight, z_s gravitational radii behind the hole (ray_destination.h:172-204).
+
+    The observer direction is n = (sin i cos phi0, sin i sin phi0, cos i) in
+    spin-axis Cartesian coordinates; a ray stops where its signed projection
+    along n drops to -z_s or below. sin i and cos i are taken once in double
+    (``math``), so a float32 march rounds them once, as the CUDA kernel
+    takes them; no step-size cap.
+    """
+
+    incl: float
+    phi0: float = 0.0
+    z_s: float = 100.0
+
+    @property
+    def sin_incl(self) -> float:
+        return math.sin(self.incl)
+
+    @property
+    def cos_incl(self) -> float:
+        return math.cos(self.incl)
+
+    def projection(self, r, theta, phi):
+        return r * (torch.sin(theta) * self.sin_incl * torch.cos(phi - self.phi0)
+                    + torch.cos(theta) * self.cos_incl)
+
+    def reached(self, r, theta, phi, prev_theta):
+        return self.projection(r, theta, phi) <= -self.z_s
+
+    def source_coords(self, r, theta, phi):
+        """East/North Cartesian coordinates on the source plane, oriented as
+        the image plane (ray_destination.h:195-203)."""
+        X = r * torch.sin(theta) * torch.cos(phi)
+        Y = r * torch.sin(theta) * torch.sin(phi)
+        Z = r * torch.cos(theta)
+        s0, c0 = math.sin(self.phi0), math.cos(self.phi0)
+        x_s = -X * s0 + Y * c0
+        y_s = -X * self.cos_incl * c0 - Y * self.cos_incl * s0 + Z * self.sin_incl
+        return x_s, y_s
+
+
+@dataclasses.dataclass(frozen=True)
+class SphericalShell(Destination):
+    """Stop on r >= r_shell, an explicit far sphere (the reference reaches
+    it with thetalim = 0 and the rlim termination). The step is capped along
+    pr where the ray climbs towards the shell from inside."""
+
+    r_shell: float
+
+    def reached(self, r, theta, phi, prev_theta):
+        return r >= self.r_shell
+
+    def step_limit(self, r, theta, phi, pr, ptheta, pphi):
+        out = (pr > 0) & (r < self.r_shell)
+        lim = (self.r_shell - r) / torch.where(pr == 0, torch.ones_like(pr), pr)
+        return torch.where(out, lim, torch.full_like(pr, math.inf))

@@ -1,6 +1,8 @@
 """Integrator cores and reductions (torch), and the route between the
 CUDA march kernel and its plain version."""
 
+import torch
+
 from raytrace_tpu_torch.ops.integrate import RK45_STEPLIM, STEPLIM, StepControl, trace
 from raytrace_tpu_torch.ops.march_kernel import trace_kernel
 from raytrace_tpu_torch.ops.reductions import radial_bin_profile
@@ -14,16 +16,25 @@ def kernel_steplim(method, steplim=None) -> int:
     return steplim
 
 
-def trace_auto(rays, spin, **kw):
+def trace_auto(rays, spin, march_dtype=None, **kw):
     """March on the batch's device: a CUDA batch goes to the march kernel
-    (float32, with ``kernel_steplim``), a CPU batch to the plain lock-step
-    ``trace``. Every keyword is passed on, so both routes take ``trace``'s
+    (with ``kernel_steplim``), a CPU batch to the plain lock-step ``trace``.
+    Every other keyword is passed on, so both routes take ``trace``'s
     keywords and reject unknown ones; the method defaults to ``trace``'s
-    rk45 on both."""
+    rk45 on both.
+
+    ``march_dtype`` is the kernel's working precision on a CUDA batch:
+    float32 when None (as the TPU kernel marches), or float64. The plain
+    march works in the batch's own dtype, so on a CPU batch it must be None
+    or that dtype."""
     if rays.r.is_cuda:
         method = kw.pop("method", "rk45")
         steplim = kernel_steplim(method, kw.pop("steplim", None))
-        return trace_kernel(rays, spin, method=method, steplim=steplim, **kw)
+        dtype = torch.float32 if march_dtype is None else march_dtype
+        return trace_kernel(rays, spin, method=method, steplim=steplim, march_dtype=dtype, **kw)
+    if march_dtype not in (None, rays.r.dtype):
+        raise ValueError(f"the plain march works in the batch's dtype {rays.r.dtype}, "
+                         f"not march_dtype={march_dtype}")
     return trace(rays, spin, **kw)
 
 

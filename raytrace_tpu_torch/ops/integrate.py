@@ -9,7 +9,10 @@ ported. Works in f32 or f64 on whatever device the batch lives on.
 
 Retired lanes are dropped every ``_COMPACT_EVERY`` iterations (gather the
 active rays, march them, scatter back): a retired lane is frozen, so this
-leaves every result unchanged and only cuts the cost of the long tail.
+leaves every result unchanged and only cuts the cost of the long tail. On
+a CUDA batch the iteration of each compaction epoch is captured once as a
+CUDA graph and replayed (``_capture``): the same kernels, so the same bits,
+at a fraction of the host's cost per iteration.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ _PI = math.pi
 _HALF_PI = math.pi / 2
 _CHECK_EVERY = 16
 _COMPACT_EVERY = 256
+_CUDA_GRAPHS = True  # replay each compaction epoch's iteration as a CUDA graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -527,7 +531,9 @@ def trace(
       spin: black-hole spin a (Python float or 0-d tensor).
       method: "euler" | "rk4" | "rk45".
       dest: termination surface (default ThetaLimit(pi/2), the disc plane);
-        ThetaLimit/FlatDisc or DiscWithISCO.
+        ThetaLimit/FlatDisc, DiscWithISCO, FlatPlane or SphericalShell. RK4
+        and Euler clamp their step onto ThetaLimit only; RK45 caps every
+        trial step at ``dest.step_limit`` (+inf for FlatPlane).
       r_max: outer radial limit (RAY_STATUS_RLIM); <= 0 disables.
       steplim: per-ray step budget; defaults to RK45_STEPLIM / STEPLIM.
       ctrl: step-size tuning constants.
@@ -553,27 +559,34 @@ def trace(
     step = st.dt
     rates = _seed_rk45_rates(st, st.active, spin) if method == "rk45" else None
 
+    def advance(st, step, rates):
+        if method == "rk45":
+            return _rk45_body(st, spin, horizon, capture, dest, r_max, steplim, ctrl,
+                              st.active, step, rates)
+        return (_euler_rk4_body(st, spin, horizon, capture, dest, r_max, steplim, ctrl,
+                                method, st.active), step, rates)
+
     it = 0
+    replay = None
     while it < max_iters and st.n_rays > 0:
-        active = st.active
         # an iteration with no active lane changes nothing, so the exit
         # test need not run every iteration (it costs a device sync)
-        if it % _CHECK_EVERY == 0 and not bool(active.any()):
+        if it % _CHECK_EVERY == 0 and not bool(st.active.any()):
             break
         if it % _COMPACT_EVERY == 0 and it > 0:
             # drop retired lanes: they are frozen, so this changes nothing
-            keep = torch.nonzero(active).squeeze(1)
+            keep = torch.nonzero(st.active).squeeze(1)
             if keep.numel() < st.n_rays:
                 out = _scatter(out, idx, st.replace(dt=step))
                 idx, st, step = idx[keep], _gather(st, keep), step[keep]
                 rates = tuple(v[keep] for v in rates) if rates is not None else None
-                active = st.active
-        if method == "rk45":
-            st, step, rates = _rk45_body(st, spin, horizon, capture, dest, r_max, steplim,
-                                         ctrl, active, step, rates)
+                replay = None
+        if replay is not None:
+            replay.replay()
         else:
-            st = _euler_rk4_body(st, spin, horizon, capture, dest, r_max, steplim, ctrl,
-                                 method, active)
+            st, step, rates = advance(st, step, rates)
+            if st.r.is_cuda and _CUDA_GRAPHS:
+                (st, step, rates), replay = _capture(advance, st, step, rates)
         it += 1
     final = _scatter(out, idx, st.replace(dt=step))
 
@@ -586,9 +599,32 @@ def trace(
     return final
 
 
+def _capture(advance, st: RayBatch, step, rates):
+    """Capture one lock-step iteration on CUDA as a graph that updates its
+    carry in place. Returns the carry (fresh buffers holding the current
+    state) and the graph: each ``replay()`` is one iteration, the same
+    kernels on the same shapes as the eager call, so the same bits, without
+    the host's per-operation dispatch that bounds a small batch's eager
+    iteration. The caller runs an eager iteration first (loading every
+    kernel) and drops the graph when compaction changes the shapes."""
+    names = [f.name for f in dataclasses.fields(st)]
+    st = st.replace(**{n: getattr(st, n).clone() for n in names})
+    step = step.clone()
+    rates = tuple(v.clone() for v in rates) if rates is not None else None
+    bufs = [getattr(st, n) for n in names] + [step] + list(rates or ())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        st_n, step_n, rates_n = advance(st, step, rates)
+        new = [getattr(st_n, n) for n in names] + [step_n] + list(rates_n or ())
+        for buf, v in zip(bufs, new):
+            buf.copy_(v)
+    return (st, step, rates), graph
+
+
 def _refine_theta_crossing(st: RayBatch, dest, spin) -> RayBatch:
     """Back-interpolate destination hits onto the theta_lim surface along the
-    final momentum (position error O(step) -> O(step^2))."""
+    final momentum (position error O(step) -> O(step^2)). Surfaces without a
+    ``theta_lim`` (FlatPlane, SphericalShell) are left alone."""
     theta_lim = getattr(dest, "theta_lim", None)
     if theta_lim is None:
         return st

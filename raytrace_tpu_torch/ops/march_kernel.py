@@ -3,9 +3,9 @@
 Counterpart of ``raytrace_tpu/ops/pallas_kernel.py::trace_pallas``: the
 kernel (``csrc/march.cu`` on the per-ray step of ``csrc/march.cuh``)
 marches every ray to termination in registers, one thread per ray, for
-``euler``, ``rk4`` and ``rk45`` with the ``ThetaLimit``/``FlatDisc``
-destination and ``rk4`` and ``rk45`` with ``DiscWithISCO``, in float32 (the
-default, as on the TPU) or float64. The plain version is
+``euler``, ``rk4`` and ``rk45`` with each of the ``ThetaLimit``/``FlatDisc``,
+``DiscWithISCO``, ``FlatPlane`` and ``SphericalShell`` destinations, in
+float32 (the default, as on the TPU) or float64. The plain version is
 ``ops/integrate.py::trace``; ``ops.trace_auto`` picks one of the two by the
 device of the batch.
 
@@ -26,7 +26,7 @@ from pathlib import Path
 
 import torch
 
-from raytrace_tpu_torch.destinations import DiscWithISCO, ThetaLimit
+from raytrace_tpu_torch.destinations import DiscWithISCO, FlatPlane, SphericalShell, ThetaLimit
 from raytrace_tpu_torch.geometry.kerr import horizon_radius
 from raytrace_tpu_torch.ops.integrate import (
     StepControl,
@@ -50,7 +50,7 @@ I_FIELDS = ("steps", "status", "rdot_flips", "equatorial_crossings")
 B_FIELDS = ("r_was_positive", "theta_was_positive")
 
 _METHOD_CODE = {"rk4": 1, "rk45": 2, "euler": 3}
-_DEST_THETA, _DEST_ISCO = 0, 1
+_DEST_THETA, _DEST_ISCO, _DEST_PLANE, _DEST_SHELL = 0, 1, 2, 3
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 # Kernel launches so far: counted where the kernel is launched, nowhere else.
@@ -62,11 +62,11 @@ _lib = None
 def argtypes(stream: bool = True):
     """ctypes argument list of rt_march_launch (without the trailing stream
     for the host build's rt_march_host): 21 pointers, n, spin, r_max,
-    horizon, the destination code and its three parameters, steplim,
+    horizon, the destination code and its four parameters, steplim,
     max_iters, the 11 StepControl values, method and dtype."""
     c = ctypes
     types = [c.c_void_p] * 21 + [c.c_int64] + [c.c_double] * 3 + [c.c_int]
-    types += [c.c_double] * 3 + [c.c_int] * 2 + [c.c_double] * 11 + [c.c_int, c.c_int]
+    types += [c.c_double] * 4 + [c.c_int] * 2 + [c.c_double] * 11 + [c.c_int, c.c_int]
     return types + [c.c_void_p] if stream else types
 
 
@@ -116,6 +116,26 @@ def load():
     return _lib
 
 
+def _dest_args(dest) -> list:
+    """The destination's kernel code and its four parameters p0..p3 as
+    Python floats (csrc/march.cuh, DEST_*); the kernel rounds each once to
+    the march dtype, as torch rounds the Python floats the plain march
+    computes with. FlatPlane passes the sin and cos of its inclination that
+    the plain ``FlatPlane`` multiplies by."""
+    kind = type(dest)
+    if kind is ThetaLimit:
+        return [_DEST_THETA, float(dest.theta_lim), 0.0, 0.0, 0.0]
+    if kind is DiscWithISCO:
+        return [_DEST_ISCO, float(dest.r_isco), float(dest.r_out), float(dest.theta_lim), 0.0]
+    if kind is FlatPlane:
+        return [_DEST_PLANE, dest.sin_incl, dest.cos_incl, float(dest.phi0), float(dest.z_s)]
+    if kind is SphericalShell:
+        return [_DEST_SHELL, float(dest.r_shell), 0.0, 0.0, 0.0]
+    raise NotImplementedError(
+        "march kernel supports ThetaLimit, DiscWithISCO, FlatPlane and SphericalShell, "
+        f"got {kind.__name__}")
+
+
 def prepare(rays: RayBatch, spin, *, method, dest, r_max, steplim, ctrl: StepControl,
             boundary, march_dtype):
     """Fresh-propagation setup, then the 21 marched fields as fresh
@@ -126,14 +146,7 @@ def prepare(rays: RayBatch, spin, *, method, dest, r_max, steplim, ctrl: StepCon
         raise NotImplementedError(f"march kernel supports euler, rk4 and rk45, got {method!r}")
     if dest is None:
         dest = ThetaLimit(math.pi / 2)
-    if type(dest) is ThetaLimit:
-        dest_args = [_DEST_THETA, float(dest.theta_lim), 0.0, 0.0]
-    elif type(dest) is DiscWithISCO and method != "euler":
-        dest_args = [_DEST_ISCO, float(dest.r_isco), float(dest.r_out), float(dest.theta_lim)]
-    else:
-        raise NotImplementedError(
-            "march kernel supports ThetaLimit with euler/rk4/rk45 and DiscWithISCO with "
-            f"rk4/rk45, got {type(dest).__name__} with {method}")
+    dest_args = _dest_args(dest)
     if march_dtype not in _DTYPE_CODE:
         raise TypeError(f"march_dtype must be float32 or float64, got {march_dtype}")
     if rays.r.dtype not in _DTYPE_CODE:
@@ -194,7 +207,7 @@ def trace_kernel(
     march_dtype=torch.float32,
 ) -> RayBatch:
     """CUDA-kernel twin of ``ops.integrate.trace`` (euler/rk4/rk45 with
-    ThetaLimit, rk4/rk45 with DiscWithISCO).
+    ThetaLimit, DiscWithISCO, FlatPlane or SphericalShell).
 
     The batch must live on a CUDA device. Launches once on the current
     stream and does not synchronise; returns the same RayBatch contract as

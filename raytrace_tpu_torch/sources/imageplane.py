@@ -14,8 +14,8 @@ Q = l_theta^2 - (a cos theta)^2 + (h / tan theta)^2.
 The initial conditions are computed in float64 on the host CPU and rounded
 once to the batch dtype: at dist = 10^4 the float32 ulp of r is ~10^-3 r_g,
 so a float32 chain of arccos and the null-condition quadratic would put
-several ulp of error on every start. The 5-ray bundles of the caustic apps
-(``image_plane_bundles``) are not ported yet.
+several ulp of error on every start. The caustic apps' 5-ray bundles
+(``image_plane_bundles``) are seeded the same way.
 """
 
 from __future__ import annotations
@@ -104,6 +104,29 @@ def _plane_ray(x, y, D, incl, phi0, a_trace, work_eps):
     return t, r, theta, phi, (pt, pr, ptheta, pphi), (k, h, Q), rdot_sign, thetadot_sign
 
 
+def _seeded_batch(x, y, dist, incl_deg, spin, phi0, *, device, dtype, work_dtype) -> RayBatch:
+    """Seed the plane points (x, y) (float64 on the CPU) through _plane_ray
+    in float64 and round every field once to ``dtype`` on ``device``."""
+    f64 = torch.float64
+    deg = torch.tensor(float(incl_deg), dtype=f64)
+    parts = _plane_ray(
+        x, y, torch.tensor(float(dist), dtype=f64), deg * torch.pi / 180.0,
+        torch.tensor(float(phi0), dtype=f64), -float(spin), torch.finfo(work_dtype).eps,
+    )
+    t, r, theta, phi, mom, consts, rdot_sign, thetadot_sign = parts
+    c = lambda v: v.to(device=device, dtype=dtype)
+    n = x.shape[0]
+    base = blank_batch(n, device=device, dtype=dtype)
+    return base.replace(
+        t=c(t), r=c(r), theta=c(theta), phi=c(phi),
+        pt=c(mom[0]), pr=c(mom[1]), ptheta=c(mom[2]), pphi=c(mom[3]),
+        k=c(consts[0]), h=c(consts[1]), Q=c(consts[2]),
+        rdot_sign=c(rdot_sign), thetadot_sign=c(thetadot_sign),
+        steps=torch.zeros(n, dtype=torch.int32, device=device),
+        alpha=c(x), beta=c(y),
+    )
+
+
 def image_plane(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, *, device,
                 dtype=torch.float64, work_dtype=None) -> RayBatch:
     """Build the backward-traced camera batch on ``device``.
@@ -119,21 +142,31 @@ def image_plane(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, *, device,
     a card passes ``work_dtype=torch.float32``.
     """
     work_dtype = dtype if work_dtype is None else work_dtype
-    f64 = torch.float64
-    x, y = grid.xy(dtype=f64)
-    deg = torch.tensor(float(incl_deg), dtype=f64)
-    parts = _plane_ray(
-        x, y, torch.tensor(float(dist), dtype=f64), deg * torch.pi / 180.0,
-        torch.tensor(float(phi0), dtype=f64), -float(spin), torch.finfo(work_dtype).eps,
-    )
-    t, r, theta, phi, mom, consts, rdot_sign, thetadot_sign = parts
-    c = lambda v: v.to(device=device, dtype=dtype)
-    base = blank_batch(grid.n_rays, device=device, dtype=dtype)
-    return base.replace(
-        t=c(t), r=c(r), theta=c(theta), phi=c(phi),
-        pt=c(mom[0]), pr=c(mom[1]), ptheta=c(mom[2]), pphi=c(mom[3]),
-        k=c(consts[0]), h=c(consts[1]), Q=c(consts[2]),
-        rdot_sign=c(rdot_sign), thetadot_sign=c(thetadot_sign),
-        steps=torch.zeros(grid.n_rays, dtype=torch.int32, device=device),
-        alpha=c(x), beta=c(y),
-    )
+    x, y = grid.xy(dtype=torch.float64)
+    return _seeded_batch(x, y, dist, incl_deg, spin, phi0, device=device, dtype=dtype,
+                         work_dtype=work_dtype)
+
+
+def image_plane_bundles(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, eps_frac=0.01,
+                        *, device, dtype=torch.float64):
+    """5-ray bundles per pixel: the centre ray and E/W/N/S satellites at
+    +-eps = eps_frac * min(dx, dy) (imageplane_bundles.h:44-200), for the
+    caustic apps' lensing Jacobians. Returns the batch of 5 * nx * ny rays,
+    ordered [centre, east (+x), west (-x), north (+y), south (-y)] x pixels
+    (ray index = bundle slot * n_pixels + pixel), and eps.
+
+    Seeded like ``image_plane``: plane coordinates and initial conditions
+    in float64, one rounding to ``dtype``, which is also the march dtype
+    and sets the knife-edge floor. A float32 march quantises the
+    satellites' start directions at the ulp of theta (~1.2e-7 rad): adequate
+    up to dist ~ 10^3 at eps_frac = 0.01, hence float64 for the par files'
+    dist 10^4.
+    """
+    eps = eps_frac * min(grid.dx, grid.dy)
+    offsets = [(0.0, 0.0), (eps, 0.0), (-eps, 0.0), (0.0, eps), (0.0, -eps)]
+    xc, yc = grid.xy(dtype=torch.float64)
+    x = torch.cat([xc + ox for ox, _ in offsets])
+    y = torch.cat([yc + oy for _, oy in offsets])
+    rays = _seeded_batch(x, y, dist, incl_deg, spin, phi0, device=device, dtype=dtype,
+                         work_dtype=dtype)
+    return rays, eps

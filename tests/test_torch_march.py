@@ -17,13 +17,16 @@ test runs where JAX is not installed:
     python -m pytest --noconftest -m cuda tests/test_torch_march.py
 """
 
+import math
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from raytrace_tpu_torch.destinations import DiscWithISCO, ThetaLimit  # noqa: E402
+from raytrace_tpu_torch.destinations import Destination, DiscWithISCO, FlatPlane  # noqa: E402
+from raytrace_tpu_torch.destinations import SphericalShell, ThetaLimit  # noqa: E402
 from raytrace_tpu_torch.geometry import isco_radius  # noqa: E402
 from raytrace_tpu_torch.ops import march_kernel, trace  # noqa: E402
 from raytrace_tpu_torch.rays import from_numpy, to_numpy  # noqa: E402
@@ -152,7 +155,7 @@ def test_trace_kernel_refuses_cpu_tensors():
 @pytest.mark.parametrize(
     "kw, exc",
     [
-        (dict(method="euler", dest=DiscWithISCO(1.2)), NotImplementedError),
+        (dict(method="euler", dest=Destination()), NotImplementedError),
         (dict(dest=object()), NotImplementedError),
         (dict(march_dtype=torch.float16), TypeError),
         (dict(method="dopri"), NotImplementedError),
@@ -184,30 +187,34 @@ def test_kernel_wrapper_buffers_follow_launch_order():
     assert all(buf[f].dtype == torch.int32 for f in march_kernel.I_FIELDS)
     assert all(buf[f].dtype == torch.bool for f in march_kernel.B_FIELDS)
     assert len(scalars) + 21 + 1 == len(march_kernel.argtypes(stream=True))
-    assert isinstance(dest, ThetaLimit) and scalars[4:8] == [0, np.pi / 2, 0.0, 0.0]
-    assert scalars[9] == 100 + 25 + 16
+    assert isinstance(dest, ThetaLimit) and scalars[4:9] == [0, np.pi / 2, 0.0, 0.0, 0.0]
+    assert scalars[10] == 100 + 25 + 16
     assert torch.equal(rays.r, r_before)
     assert (buf["dt"] > 0).all()  # rk45 step seeded
 
 
 @pytest.mark.parametrize("method", ["euler", "rk4", "rk45"])
 def test_kernel_wrapper_destination_arguments(method):
-    """The destination code and its three parameters, in the launch order
-    (r_isco, r_out, theta_lim for DiscWithISCO), as Python floats that the
-    kernel rounds once to the march dtype; Euler takes ThetaLimit only."""
+    """The destination code and its four parameters, in the launch order
+    (r_isco, r_out, theta_lim for DiscWithISCO; sin incl, cos incl, phi0,
+    z_s for FlatPlane; r_shell for SphericalShell), as Python floats that
+    the kernel rounds once to the march dtype; every method takes every
+    destination."""
     rays = _port_source(0.4)
     kw = dict(method=method, r_max=1000.0, steplim=100, ctrl=march_kernel.StepControl(),
               boundary=None, march_dtype=torch.float32)
     _, _, _, scalars = march_kernel.prepare(rays, SPIN, dest=ThetaLimit(-1.4), **kw)
-    assert scalars[4:8] == [0, -1.4, 0.0, 0.0]
+    assert scalars[4:9] == [0, -1.4, 0.0, 0.0, 0.0]
     assert scalars[-2] == {"rk4": 1, "rk45": 2, "euler": 3}[method]
     isco = DiscWithISCO(isco_radius(SPIN), R_DISC)
-    if method == "euler":
-        with pytest.raises(NotImplementedError, match="DiscWithISCO"):
-            march_kernel.prepare(rays, SPIN, dest=isco, **kw)
-        return
     _, dest, _, scalars = march_kernel.prepare(rays, SPIN, dest=isco, **kw)
-    assert dest is isco and scalars[4:8] == [1, isco_radius(SPIN), R_DISC, np.pi / 2]
+    assert dest is isco and scalars[4:9] == [1, isco_radius(SPIN), R_DISC, np.pi / 2, 0.0]
+    plane = FlatPlane(1.3, 0.2, 500.0)
+    _, _, _, scalars = march_kernel.prepare(rays, SPIN, dest=plane, **kw)
+    assert scalars[4:9] == [2, plane.sin_incl, plane.cos_incl, 0.2, 500.0]
+    assert plane.sin_incl == math.sin(1.3) and plane.cos_incl == math.cos(1.3)
+    _, _, _, scalars = march_kernel.prepare(rays, SPIN, dest=SphericalShell(40.0), **kw)
+    assert scalars[4:9] == [3, 40.0, 0.0, 0.0, 0.0]
 
 
 @pytest.mark.cuda
@@ -234,3 +241,75 @@ def test_trace_kernel_matches_plain_march_on_cuda(method, dtype):
     else:
         _assert_agree(live, a, b, med_dr=1e-5, status_rate=0.98, steps_rate=0.98,
                       relative=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["euler", "rk4", "rk45"])
+def test_plain_march_graph_replay_matches_eager_on_cuda(monkeypatch, method):
+    """The plain march replaying each compaction epoch's iteration as a CUDA
+    graph gives every field of the eager march's result bitwise, over three
+    epochs (steplim 600, compaction every 256 iterations)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: CUDA graphs have no CPU version")
+    from raytrace_tpu_torch.ops import integrate
+
+    rays = from_numpy(to_numpy(_port_source(0.05)), device="cuda", dtype=torch.float32)
+    graphed = trace(rays, SPIN, method=method, steplim=600)
+    monkeypatch.setattr(integrate, "_CUDA_GRAPHS", False)
+    eager = trace(rays, SPIN, method=method, steplim=600)
+    assert int((graphed.steps.abs() > 256).sum()) > 100
+    for f in rays.__dataclass_fields__:
+        a, b = getattr(graphed, f).cpu().numpy(), getattr(eager, f).cpu().numpy()
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+POW_PROBE = r"""
+#include <cuda_runtime.h>
+#include <math.h>
+__global__ void pow_kernel(const double* x, double* out, long n) {
+  const long i = blockIdx.x * (long)blockDim.x + threadIdx.x;
+  if (i < n) out[i] = pow(x[i], 0.2);
+}
+extern "C" int pow_launch(const double* x, double* out, long n) {
+  pow_kernel<<<(n + 255) / 256, 256>>>(x, out, n);
+  return (int)cudaDeviceSynchronize();
+}
+"""
+
+
+@pytest.mark.cuda
+def test_double_pow_rounding_follows_fma_contraction_on_cuda(tmp_path):
+    """Why about one float64 RK45 ray in 10^6 ends near, not on, the plain
+    march's bits: the CUDA math library's double pow(x, 0.2), taken once a
+    DOPRI5 step, is inlined into its caller and compiled under the caller's
+    flags. Built with nvcc's default contraction, as torch builds its
+    kernels, it gives torch.pow's bits on every one of 2e7 log-uniform
+    inputs; built as the march kernel is built (--fmad=false) it may be an
+    ulp apart on a few in a million."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    import ctypes
+    import subprocess
+
+    n = 20_000_000
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.exp(torch.empty(n, dtype=torch.float64, device="cuda").uniform_(-23.0, 23.0,
+                                                                            generator=gen))
+    want = torch.pow(x, 0.2)
+    src = tmp_path / "pow_probe.cu"
+    src.write_text(POW_PROBE)
+    differ = {}
+    for fmad in ("true", "false"):
+        lib_path = tmp_path / f"pow_{fmad}.so"
+        subprocess.run([march_kernel._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                        f"--fmad={fmad}", "-shared", "-Xcompiler", "-fPIC", "-o", str(lib_path),
+                        str(src)], check=True)
+        lib = ctypes.CDLL(str(lib_path))
+        lib.pow_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_long]
+        out = torch.empty_like(x)
+        assert lib.pow_launch(x.data_ptr(), out.data_ptr(), n) == 0
+        differ[fmad] = int((out != want).sum())
+    print(f"double pow(x, 0.2) against torch.pow, {n} inputs: {differ['true']} differ built "
+          f"with --fmad=true, {differ['false']} with --fmad=false")
+    assert differ["true"] == 0
+    assert differ["false"] <= 1e-5 * n

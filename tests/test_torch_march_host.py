@@ -5,12 +5,17 @@ kernel runs per thread; ``csrc/march_host.cpp`` runs the same function ray
 after ray. Built here with g++ (no FMA contraction) and driven through the
 kernel wrapper's own argument packing, it must agree with the plain torch
 march in f64 under the tests/test_native.py gates: ThetaLimit with rk4 and
-rk45 on the golden 0.05 lamppost grid, and the image-plane slice's variants
+rk45 on the golden 0.05 lamppost grid, the image-plane slice's variants
 (DiscWithISCO with rk4 and rk45, Euler with ThetaLimit) on 1,681
-backward-traced image-plane rays.
+backward-traced image-plane rays, and the caustics slice's (Euler with
+DiscWithISCO; FlatPlane and SphericalShell with every method). Each
+destination's ``reached`` is also checked point by point against the plain
+one in float32 (``rt_reached_host``).
 """
 
 import ctypes
+import ctypes.util
+import math
 import shutil
 import subprocess
 
@@ -20,7 +25,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from raytrace_tpu_torch.destinations import DiscWithISCO, ThetaLimit  # noqa: E402
+from raytrace_tpu_torch.destinations import DiscWithISCO, FlatPlane, SphericalShell  # noqa: E402
+from raytrace_tpu_torch.destinations import ThetaLimit  # noqa: E402
 from raytrace_tpu_torch.geometry import isco_radius  # noqa: E402
 from raytrace_tpu_torch.ops import march_kernel, trace  # noqa: E402
 from raytrace_tpu_torch.ops.integrate import StepControl  # noqa: E402
@@ -47,14 +53,30 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(out))
     lib.rt_march_host.argtypes = march_kernel.argtypes(stream=False)
     lib.rt_march_host.restype = ctypes.c_int
+    lib.rt_reached_host.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int]
+                                    + [ctypes.c_double] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    lib.rt_reached_host.restype = ctypes.c_int
     return lib
 
 
-def host_trace(lib, rays, spin, method, steplim, dtype=torch.float64, dest=None, r_max=1000.0):
+def host_reached(lib, dest, r, theta, phi, prev):
+    """``dest_reached`` of the host build on float32 or float64 numpy points,
+    with the destination's arguments as the kernel wrapper packs them."""
+    code, *params = march_kernel._dest_args(dest)
+    pts = [np.ascontiguousarray(v) for v in (r, theta, phi, prev)]
+    out = np.zeros(len(r), dtype=np.bool_)
+    dtype = {np.float32: 0, np.float64: 1}[pts[0].dtype.type]
+    assert lib.rt_reached_host(*(v.ctypes.data for v in pts), len(r), code, *params, dtype,
+                               out.ctypes.data) == 0
+    return out
+
+
+def host_trace(lib, rays, spin, method, steplim, dtype=torch.float64, dest=None, r_max=1000.0,
+               boundary=None):
     """trace_kernel's path with the host build in place of the launch."""
     prepared, dest, buf, scalars = march_kernel.prepare(
         rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim,
-        ctrl=StepControl(), boundary=None, march_dtype=dtype)
+        ctrl=StepControl(), boundary=boundary, march_dtype=dtype)
     assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars) == 0
     return march_kernel.finish(prepared, buf, dest, spin, refine_crossing=True)
 
@@ -174,11 +196,6 @@ def test_host_march_isco_edges_round_like_the_plain_march(host_lib):
     answers exactly as the plain ``reached`` (a comparison in double would
     not); and an annulus whose edges are not float32 numbers stops the same
     rays in both f32 marches."""
-    lib = host_lib
-    lib.rt_isco_reached_host.argtypes = [ctypes.c_void_p] * 3 + [
-        ctypes.c_int64, ctypes.c_double, ctypes.c_double, ctypes.c_double, ctypes.c_int,
-        ctypes.c_void_p]
-    lib.rt_isco_reached_host.restype = ctypes.c_int
     half_pi = np.float32(np.pi / 2)
     # crossing upwards, downwards, and no crossing
     thetas = [(half_pi - np.float32(1e-3), half_pi + np.float32(1e-3)),
@@ -197,10 +214,7 @@ def test_host_march_isco_edges_round_like_the_plain_march(host_lib):
             dest = DiscWithISCO(r_isco, r_out)
             want = dest.reached(torch.from_numpy(r32), torch.from_numpy(theta), None,
                                 torch.from_numpy(prev)).numpy()
-            got = np.zeros(len(r32), dtype=np.bool_)
-            assert lib.rt_isco_reached_host(
-                r32.ctypes.data, theta.ctypes.data, prev.ctypes.data, len(r32), r_isco, r_out,
-                dest.theta_lim, 0, got.ctypes.data) == 0
+            got = host_reached(host_lib, dest, r32, theta, np.zeros_like(r32), prev)
             np.testing.assert_array_equal(got, want)
             crossed = ((prev < half_pi) & (theta >= half_pi)) | ((prev > half_pi) & (theta <= half_pi))
             r64 = r32.astype(np.float64)
@@ -218,3 +232,125 @@ def test_host_march_isco_edges_round_like_the_plain_march(host_lib):
     b = trace(rays32, -SPIN, method="rk4", steplim=STEPLIM, dest=dest, r_max=550.0)
     assert (a.status.numpy() == b.status.numpy()).mean() > 0.98
     assert ((a.status.numpy() & 1) != 0).sum() > 50
+
+
+# the caustics slice's new instantiations: (method, destination kind)
+CAUSTIC_VARIANTS = [("euler", "isco")] + [(m, k) for k in ("plane", "shell")
+                                          for m in ("euler", "rk4", "rk45")]
+
+
+def _caustic_case(kind, dtype=torch.float64):
+    """(rays, march spin, destination, march keywords) of one surface:
+    image-plane rays (dist 500) marched with -SPIN for DiscWithISCO and
+    FlatPlane, a spin-0.3 lamppost with the boundary at r = 2.5 for
+    SphericalShell."""
+    if kind == "shell":
+        rays = point_source((0.0, 5.0, 1e-3, 0.0), 0.0, 0.3,
+                            PointSourceGrid.from_steps(0.1, 0.2, -0.9, 0.9, -3.0, 3.0), device="cpu")
+        return rays, 0.3, SphericalShell(40.0), dict(r_max=300.0, boundary=2.5)
+    grid = ImagePlaneGrid.from_steps(-10.0, 10.0, 1.0, -10.0, 10.0, 1.0)
+    if kind == "plane":
+        rays = image_plane(500.0, 30.0, grid, SPIN, device="cpu", work_dtype=dtype)
+        return rays, -SPIN, FlatPlane(math.radians(30.0), 0.2, 200.0), dict(r_max=800.0)
+    rays = image_plane(500.0, 60.0, grid, SPIN, device="cpu", work_dtype=dtype)
+    return rays, -SPIN, _dest("isco"), dict(r_max=550.0)
+
+
+@pytest.mark.parametrize("method, kind", CAUSTIC_VARIANTS)
+def test_host_march_caustic_variants_match_plain_march_f64(host_lib, method, kind):
+    """The caustics slice's instantiations against the plain march, f64,
+    under the tests/test_native.py gates, counters included. With rk45 the
+    rays that end in the far field (on FlatPlane, which caps no step, or at
+    r_max) are held to 1e-7 relative in r: their DOPRI5 step sequences part
+    on libm rounding noise (glibc here, torch's vectorised sin/cos there),
+    as in tests/test_torch_march_plane.py."""
+    rays, spin, dest, kw = _caustic_case(kind)
+    a = host_trace(host_lib, rays, spin, method, STEPLIM, dest=dest, **kw)
+    b = trace(rays, spin, method=method, steplim=STEPLIM, dest=dest, **kw)
+    live = (rays.steps == 0).numpy()
+    sa, sb = a.status.numpy(), b.status.numpy()
+    assert (sa == sb)[live].mean() > 0.99
+    same = (sa == sb) & live
+    dr = np.abs(a.r.numpy() - b.r.numpy())
+    far = same & ((sa == 4) | ((sa == 1) & (kind == "plane"))) if method == "rk45" else same & False
+    if far.any():
+        assert np.median(dr[far] / b.r.numpy()[far]) < 1e-7
+    assert np.median(dr[same & ~far]) < 1e-10
+    assert (a.steps.numpy() == b.steps.numpy())[same].mean() > 0.98
+    for f in ("rdot_flips", "equatorial_crossings"):
+        assert (getattr(a, f).numpy() == getattr(b, f).numpy())[same].mean() > 0.99
+    hit = (sa & 1) != 0
+    assert hit.sum() > 100
+    if kind == "shell":
+        assert (a.r.numpy()[hit] >= 40.0).all() and ((sa & 2) != 0).sum() > 20
+    if kind == "plane":  # every hit lies on or past the plane
+        proj = dest.projection(a.r, a.theta, a.phi).numpy()
+        assert (proj[hit] <= -dest.z_s).all()
+
+
+@pytest.mark.parametrize("method, kind", CAUSTIC_VARIANTS)
+def test_host_march_caustic_variants_f32_template(host_lib, method, kind):
+    """The float instantiations of the caustics slice against the double
+    ones: statuses equal on > 95% of live rays (the shell's boundary lies
+    among the spin-0.3 photon orbits, where f32 rounding decides capture or
+    escape for a band of rays), surface hits within 1e-3 in r (median) —
+    1e-2 for RK45 on FlatPlane, whose f32 controller (rk45_tol = 1e-8 below
+    f32's resolution) picks the steps that land at r ~ 240 on rounding
+    noise (measured 3.3e-3)."""
+    rays, spin, dest, kw = _caustic_case(kind, torch.float32)
+    a = host_trace(host_lib, rays, spin, method, STEPLIM, dtype=torch.float32, dest=dest, **kw)
+    b = host_trace(host_lib, rays, spin, method, STEPLIM, dest=dest, **kw)
+    live = (rays.steps == 0).numpy()
+    sa, sb = a.status.numpy(), b.status.numpy()
+    assert (sa == sb)[live].mean() > 0.95
+    hit = live & ((sa & 1) != 0) & ((sb & 1) != 0)
+    assert hit.sum() > 100
+    tol = 1e-2 if (method, kind) == ("rk45", "plane") else 1e-3
+    assert np.median(np.abs(a.r.numpy() / b.r.numpy() - 1)[hit]) < tol
+
+
+def _libm_agrees(fn, x32):
+    """Where torch's float32 ``fn`` equals the C library's (which the host
+    build calls): a 1-ulp libm difference at a point near the plane would
+    flip the answer whatever the operand order."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    c_fn = getattr(libm, fn + "f")
+    c_fn.argtypes, c_fn.restype = [ctypes.c_float], ctypes.c_float
+    mine = getattr(torch, fn)(torch.from_numpy(x32)).numpy()
+    return mine == np.array([c_fn(float(v)) for v in x32], dtype=np.float32)
+
+
+@pytest.mark.parametrize("incl_deg, phi0, z_s", [(80.0, 0.0, 1e4), (30.0, 0.2, 500.0),
+                                                 (60.0, -1.1, 200.0)])
+def test_host_plane_reached_rounds_like_the_plain_march(host_lib, incl_deg, phi0, z_s):
+    """FlatPlane's projection test on float32 points within a few ulp of
+    the plane answers exactly as the plain ``reached`` on float32 tensors:
+    the kernel takes sin and cos of the inclination made in double and
+    rounded once, and keeps torch's operand order. The points straddle the
+    plane, so both answers occur. Compared where torch's float32 sin and cos
+    agree with the C library's on each point (on the card both marches call
+    one libm); SphericalShell likewise at its radius."""
+    rng = np.random.default_rng(int(incl_deg))
+    dest = FlatPlane(math.radians(incl_deg), phi0, z_s)
+    n = 20_000
+    theta = rng.uniform(0.05, np.pi - 0.05, n)
+    phi = rng.uniform(-np.pi, 3 * np.pi, n)
+    proj_dir = (np.sin(theta) * dest.sin_incl * np.cos(phi - phi0)
+                + np.cos(theta) * dest.cos_incl)
+    keep = proj_dir < -0.05
+    r = z_s / -proj_dir[keep] * (1.0 + rng.normal(0.0, 3e-7, keep.sum()))
+    pts = [v.astype(np.float32) for v in (r, theta[keep], phi[keep])]
+    want = dest.reached(*(torch.from_numpy(v) for v in pts), None).numpy()
+    got = host_reached(host_lib, dest, *pts, np.zeros_like(pts[0]))
+    dphi = (torch.from_numpy(pts[2]) - phi0).numpy()
+    same_libm = (_libm_agrees("sin", pts[1]) & _libm_agrees("cos", pts[1])
+                 & _libm_agrees("cos", dphi))
+    assert same_libm.mean() > 0.7 and 0.2 < want[same_libm].mean() < 0.8
+    np.testing.assert_array_equal(got[same_libm], want[same_libm])
+
+    shell = SphericalShell(40.0 + 1e-6)
+    r32 = np.nextafter(np.float32(shell.r_shell), np.float32([0.0, np.inf, 40.0]).repeat(1))
+    r32 = np.concatenate([r32, np.float32([40.0, 41.0, 39.0])]).astype(np.float32)
+    zeros = np.zeros_like(r32)
+    want = shell.reached(torch.from_numpy(r32), None, None, None).numpy()
+    np.testing.assert_array_equal(host_reached(host_lib, shell, r32, zeros, zeros, zeros), want)
