@@ -6,7 +6,10 @@
 Phases, one line each with its seconds; any failed check raises, so the
 script exits non-zero:
   0. device: name and power limit, TF32 off;
-  1. build the march kernel from csrc/ with nvcc (ptxas registers/spills);
+  1. build the march kernel from csrc/ with nvcc (ptxas registers, stack
+     and spills of each kernel: the 24 grid-launch kernels and the
+     lane-refill one), and count the floating-point instructions of one rate
+     evaluation in the SASS of a probe (the bound's operations);
   2. parity: the kernel against the plain torch march on the card, rk4 and
      rk45, float32 and float64, on the golden 0.05 grid (5,040 rays);
   3. golden: apps.emissivity.compute on the card against the reference
@@ -38,7 +41,7 @@ script exits non-zero:
      (hold_full_width): isco rk45, euler x theta and isco rk4;
   9. image timing with CUDA events: each new instantiation against its
      plain version on the 82 x 82 grid (the plain march's float32 run of
-     phase 6, timed there), and the kernel at full width;
+     phase 6, timed there);
  10. caustic parity: the caustics slice's instantiations against the plain
      march at steplim 3000, float32 and float64, with CUDA-event times
      (kernel best of 3, plain one run): euler x isco and euler/rk4/rk45 x
@@ -58,14 +61,27 @@ script exits non-zero:
      against the plain march on each run's own batch, and the
      SphericalShell route on the bench grid (trace_auto, float32,
      euler/rk4/rk45) on its batch (hold_full_width);
- 13. caustic timing: the kernel at full width on each run's batch, with its
-     step median and maximum.
+ 13. schedules: on every main path's full-width batch held above (the two
+     emissivity batches, five disc-image ones, the five caustic runs and
+     the three shell routes), at its CLI's steplim, the kernel under the
+     schedule the launcher gives it; where that is the lane-refill
+     schedule (the float64 RK45 isco kernel), it and the grid
+     launch timed in turns (grid, refill, refill, grid), the refill result
+     bitwise the grid launch's; occupancy, registers, lane figures from
+     the step counts, one step's latency of the batch's longest ray alone
+     and the bound (time_schedules).
 A main path's batch is held against the plain march in full
 (hold_full_width): at kernel_steplim where no ray sticks, otherwise at
 STUCK_STEPLIM, so that every ray, stuck or not, is compared over its
-first STUCK_STEPLIM steps. On the card the plain march replays each
-compaction epoch's iteration as a CUDA graph (ops/integrate.py).
+first STUCK_STEPLIM steps, the kernel under the launcher's schedule and,
+where that is the lane-refill schedule, bitwise the grid launch's. On the
+card the plain march replays each compaction epoch's iteration as a CUDA
+graph (ops/integrate.py).
 The last two lines are the per-kernel JSON record and the device record.
+A record's ms is its main path's batch at the CLI's steplim under the
+schedule the launcher gives it; bound_ms the larger of its operations over
+the peak rate and its bytes over the memory rate; latency_bound_ms the
+longest ray's steps times one step's latency.
 """
 
 from __future__ import annotations
@@ -123,13 +139,37 @@ CAUSTIC_PARITY = (
 )
 SHELL = dict(r_shell=40.0, boundary=2.5)
 # the bound of a march: operations of one geodesic_rates evaluation
-# (csrc/march.cuh), counted once per common subexpression, with sin, cos,
-# sqrt and divide each one operation; evaluations per step; the card's peak
-# rates outside the tensor cores and its memory rate (H100 SXM data sheet)
-RATE_OPS = 60
+# (csrc/march.cuh) by dtype, counted in phase 1 from the SASS of a probe
+# kernel (sass_rate_ops); evaluations per step; the card's peak rates
+# outside the tensor cores and its memory rate (H100 SXM data sheet)
+RATE_OPS = {}
 RATES_PER_STEP = {"euler": 1, "rk4": 4, "rk45": 6}
 PEAK_OPS = {"float32": 67e12, "float64": 34e12}
 HBM_BYTES_PER_S = 3.35e12
+RATES_PROBE = r"""
+#include "march.cuh"
+template <typename T>
+__global__ void rates_probe(const T* x, T* out, rt::Spin<T> s) {
+  const rt::Rates<T> o = rt::geodesic_rates(x[0], x[1], x[2], x[3], x[4], x[5], x[6], s);
+  out[0] = o.pt; out[1] = o.pr; out[2] = o.ptheta; out[3] = o.pphi;
+  out[4] = o.thetadot_sq; out[5] = o.rdot_sq; out[6] = o.sin_t; out[7] = o.inv_rhosq;
+}
+template <typename T> __global__ void sin_probe(const T* x, T* out) { out[0] = rt::m_sin(x[0]); }
+template <typename T> __global__ void cos_probe(const T* x, T* out) { out[0] = rt::m_cos(x[0]); }
+template <typename T> __global__ void sqrt_probe(const T* x, T* out) { out[0] = rt::m_sqrt(x[0]); }
+template <typename T> __global__ void div_probe(const T* x, T* out) { out[0] = x[0] / x[1]; }
+#define PROBES(T)                                                          \
+  template __global__ void rates_probe<T>(const T*, T*, rt::Spin<T>);      \
+  template __global__ void sin_probe<T>(const T*, T*);                     \
+  template __global__ void cos_probe<T>(const T*, T*);                     \
+  template __global__ void sqrt_probe<T>(const T*, T*);                    \
+  template __global__ void div_probe<T>(const T*, T*);
+PROBES(float)
+PROBES(double)
+"""
+# floating-point instructions of each dtype in SASS
+SASS_FP = {"float32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FCHK", "MUFU"),
+           "float64": ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU")}
 
 class Phase:
     def __init__(self, name):
@@ -235,6 +275,43 @@ def image_golden_check(tag, out, path, n, count_tol, tols, min_pixels):
         check(devs[f] < tol, f"{tag}: {f} median dev {devs[f]:.3e} >= {tol}")
 
 
+def sass_rate_ops(tmp):
+    """Floating-point instructions of one geodesic_rates evaluation in each
+    dtype, read from cuobjdump -sass of a probe kernel built from
+    csrc/march.cuh with the march kernel's flags: the FP instructions of the
+    rates probe, less those of probes of its one sin, one cos, two square
+    roots and one divide, plus one for each of these five. A lower bound:
+    each sin counts as one operation, integer and select work not at all."""
+    import re
+    import shutil
+
+    from raytrace_tpu_torch.ops import march_kernel
+
+    src, cubin = Path(tmp) / "rates_probe.cu", Path(tmp) / "rates_probe.cubin"
+    src.write_text(RATES_PROBE)
+    nvcc = march_kernel._nvcc()
+    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                    "-O3", "--fmad=false", "-I", str(march_kernel.CSRC), "-o", str(cubin),
+                    str(src)], check=True, capture_output=True, text=True)
+    cuobjdump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True,
+                          text=True).stdout
+    counts = {}
+    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
+        probe = re.match(r"_Z\d+(\w+)_probeI([fd])E", name)
+        dtype = {"f": "float32", "d": "float64"}[probe.group(2)]
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", body)
+        counts[dtype, probe.group(1)] = sum(op in SASS_FP[dtype] for op in ops)
+    out = {}
+    for dtype in SASS_FP:
+        c = {k: counts[dtype, k] for k in ("rates", "sin", "cos", "sqrt", "div")}
+        out[dtype] = c["rates"] - c["sin"] - c["cos"] - 2 * c["sqrt"] - c["div"] + 5
+        print(f"sass {dtype}: FP instructions rates {c['rates']}, sin {c['sin']}, cos {c['cos']}, "
+              f"sqrt {c['sqrt']}, divide {c['div']} -> {out[dtype]} operations an evaluation")
+        check(out[dtype] > 0, f"rate-evaluation count {out[dtype]} from SASS")
+    return out
+
+
 def march_bound(out, method, march_dtype):
     """(bound_ms, bound_by) of one march: the larger of its operations over
     the peak rate of its dtype and its bytes over the memory rate. The
@@ -245,7 +322,7 @@ def march_bound(out, method, march_dtype):
     name = str(march_dtype).replace("torch.", "")
     size = 4 if name == "float32" else 8
     steps = out.steps
-    ops = RATE_OPS * RATES_PER_STEP[method] * int(steps[steps > 0].sum())
+    ops = RATE_OPS[name] * RATES_PER_STEP[method] * int(steps[steps > 0].sum())
     nbytes = out.n_rays * ((15 * size + 18) + (11 * size + 18))
     t_ops, t_bytes = ops / PEAK_OPS[name], nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
@@ -378,13 +455,51 @@ def caustic_golden_check(tag, app, maps, gates):
         check(v[k] > lim if op == ">" else v[k] < lim, f"{tag}: {k} {v[k]} not {op} {lim}")
 
 
+def kernel_march(rays, spin, schedule, **kw):
+    """trace_kernel under ``schedule`` ("grid" or "refill")
+    through march_kernel._trace, with trace_kernel's keywords and defaults."""
+    import inspect
+
+    from raytrace_tpu_torch.ops import march_kernel
+
+    args = {k: v.default for k, v in inspect.signature(march_kernel.trace_kernel).parameters.items()
+            if v.kind is v.KEYWORD_ONLY}
+    args.update(kw)
+    return march_kernel._trace(rays, spin, schedule, **args)
+
+
+def own_schedule(method, kw, march_dtype):
+    """The schedule the launcher gives an instantiation."""
+    from raytrace_tpu_torch.destinations import ThetaLimit
+    from raytrace_tpu_torch.ops import march_kernel
+
+    return march_kernel.schedule_of(method, kw.get("dest") or ThetaLimit(), march_dtype)
+
+
+def same_bits(a, b, torch):
+    """The names of the marched fields in which two results differ bitwise."""
+    from raytrace_tpu_torch.ops import march_kernel
+
+    views = {torch.float32: torch.int32, torch.float64: torch.int64}
+    bad = []
+    for f in march_kernel.F_FIELDS + march_kernel.I_FIELDS + march_kernel.B_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        if x.dtype in views:
+            x, y = x.view(views[x.dtype]), y.view(views[y.dtype])
+        if not torch.equal(x, y):
+            bad.append(f)
+    return bad
+
+
 def hold_full_width(tag, rays, spin, method, kw, out, march_dtype, torch):
     """The kernel against the plain march on a main path's own batch
     ``rays``, whose kernel output at kernel_steplim is ``out``, in full: at
-    kernel_steplim where no ray stuck, otherwise at STUCK_STEPLIM. Returns
-    the parity record and (kernel ms, best of 3; plain ms, one run; bound
-    ms; bound_by) of the comparison."""
-    from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, trace
+    kernel_steplim where no ray stuck, otherwise at STUCK_STEPLIM. The
+    kernel runs the launcher's schedule; where that is the lane-refill
+    schedule, it is also held bitwise, every field, to the grid launch.
+    Returns the parity record and the plain
+    march's (ms, one run; steplim)."""
+    from raytrace_tpu_torch.ops import kernel_steplim, trace
     from raytrace_tpu_torch.rays import RAY_STATUS_STEPLIM
 
     steps = out.steps.abs()
@@ -393,18 +508,159 @@ def hold_full_width(tag, rays, spin, method, kw, out, march_dtype, torch):
     print(f"main path {tag}: {int(stuck.sum())} rays stuck at kernel_steplim, "
           f"{int((~stuck & (steps > steplim)).sum())} others past steplim {steplim}, "
           f"max {int(steps.max())}")
-    k_ms, a = cuda_ms(lambda: march_kernel.trace_kernel(
-        rays, spin, method=method, steplim=steplim, march_dtype=march_dtype, **kw),
-        torch, warmup=False)
+    own = own_schedule(method, kw, march_dtype)
+    kernel_kw = dict(kw, method=method, steplim=steplim, march_dtype=march_dtype)
+    a = kernel_march(rays, spin, own, **kernel_kw)
+    if own == "refill":
+        diff = same_bits(a, kernel_march(rays, spin, "grid", **kernel_kw), torch)
+        check(not diff, f"full_{tag}: refill and grid launch differ in {diff}")
     p_ms, b = cuda_ms(lambda: trace(rays, spin, method=method, steplim=steplim, **kw), torch,
                       repeats=1, warmup=False)
     p = parity(a, b, (rays.steps == 0).cpu().numpy(), march_dtype, torch)
-    b_ms, b_by = march_bound(a, method, march_dtype)
     print(parity_line(f"full_{tag}", p) + f" | {rays.n_rays} rays, steplim {steplim}, "
-          f"kernel {k_ms:.3f} ms (best of 3), plain {p_ms:.1f} ms (one run), "
-          f"bound {b_ms:.4f} ms ({b_by})")
+          f"schedule {own}" + (", bitwise the grid launch's in all 21 fields"
+                               if own == "refill" else "") + f", plain {p_ms:.1f} ms (one run)")
     check(p["ok"], f"parity gates failed for full_{tag}: {p}")
-    return p, (k_ms, p_ms, b_ms, b_by)
+    return p, (p_ms, steplim)
+
+
+def lane_stats(steps, resident_lanes):
+    """From per-ray step counts in launch order: the warp lane utilisation
+    of the grid launch (steps over 32 x each warp's longest), and for the
+    refill schedule the steps each resident lane would take if the work
+    spread evenly, against the longest ray's."""
+    import numpy as np
+
+    s = np.abs(steps).astype(np.int64)
+    pad = np.zeros(-len(s) % 32, np.int64)
+    warps = np.concatenate([s, pad]).reshape(-1, 32)
+    return dict(grid_lane_util=float(s.sum() / (32 * warps.max(axis=1).sum())),
+                even_lane_steps=float(s.sum() / resident_lanes), max_steps=int(s.max()),
+                median_steps=float(np.median(s)))
+
+
+def step_latency_us(rays, spin, out, schedule, kw, torch):
+    """One step's latency of a lone ray: the batch's longest ray marched
+    alone to N and to 2N steps (N half its step count), the difference over
+    N; CUDA events around the launch alone, on fresh copies of the prepared
+    buffers, best of 5 each. Returns (us a step or None where the
+    difference does not come out positive, the ray's steps)."""
+    from raytrace_tpu_torch.ops import march_kernel
+    from raytrace_tpu_torch.ops.integrate import StepControl
+
+    longest = int(out.steps.abs().argmax())
+    n_steps = int(out.steps.abs()[longest])
+    one = rays.replace(**{f: getattr(rays, f)[longest:longest + 1]
+                          for f in rays.__dataclass_fields__})
+    half = max(n_steps // 2, 1)
+    args = dict(dest=None, r_max=1000.0, ctrl=StepControl(), boundary=None)
+    args.update((k, v) for k, v in kw.items() if k in args)
+    ms = []
+    for lim in (half, 2 * half):
+        _, _, buf, scalars = march_kernel.prepare(one, spin, method=kw["method"], steplim=lim,
+                                                  march_dtype=kw["march_dtype"], **args)
+        fresh = {f: b.clone() for f, b in buf.items()}
+
+        def launch():
+            for f, b in buf.items():
+                b.copy_(fresh[f])
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            march_kernel._launch(buf, scalars, schedule)
+            stop.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(stop)
+
+        launch()
+        ms.append(min(launch() for _ in range(5)))
+    return ((ms[1] - ms[0]) * 1e3 / half if ms[1] > ms[0] else None), n_steps
+
+
+def time_schedules(path, variant, rays, spin, kw, method, dtype, torch):
+    """Phase 13 on one main path's full-width batch at its CLI's steplim:
+    the kernel under the launcher's schedule, one CUDA-event launch each of
+    two after a warm-up; where that is the refill schedule, it and the grid
+    launch in turns (grid, refill, refill, grid), the refill result bitwise
+    the grid launch's. Occupancy and registers of each kernel timed, lane
+    figures from the step counts in launch order, one step's latency of the
+    longest ray alone, and the bound."""
+    from raytrace_tpu_torch.destinations import ThetaLimit
+    from raytrace_tpu_torch.ops import kernel_steplim, march_kernel
+
+    dname = str(dtype).replace("torch.", "")
+    dest = kw.get("dest") or ThetaLimit()
+    own = march_kernel.schedule_of(method, dest, dtype)
+    steplim = kernel_steplim(method)
+    kernel_kw = dict(kw, method=method, steplim=steplim, march_dtype=dtype)
+    order = ["grid", "refill", "refill", "grid"] if own == "refill" else ["grid", "grid"]
+    info = {sch: march_kernel.kernel_info(method, dest, dtype, sch) for sch in order}
+    grid_out = kernel_march(rays, spin, "grid", **kernel_kw)
+    if own == "refill":
+        diff = same_bits(kernel_march(rays, spin, "refill", **kernel_kw), grid_out, torch)
+        check(not diff, f"{path} {variant}: refill and grid launch differ in {diff}")
+    times = {sch: [] for sch in info}
+    for sch in order:
+        ms, _ = cuda_ms(lambda: kernel_march(rays, spin, sch, **kernel_kw), torch, repeats=1,
+                        warmup=False)
+        times[sch].append(ms)
+    best = {sch: min(t) for sch, t in times.items()}
+    resident = info[own]["blocks_per_sm"] * info[own]["sms"] * 128
+    lanes = lane_stats(grid_out.steps.cpu().numpy(), resident)
+    lat_us, longest = step_latency_us(rays, spin, grid_out, own, kernel_kw, torch)
+    t_bound, t_by = march_bound(grid_out, method, dtype)
+    lat_bound = None if lat_us is None else longest * lat_us / 1e3
+    print(f"schedules {path} {variant} ({rays.n_rays} rays, {dname}, steplim {steplim}): "
+          f"steps median {lanes['median_steps']:.0f} max {lanes['max_steps']}; grid launch "
+          f"lane utilisation {lanes['grid_lane_util']:.4f}; steps a resident lane if spread "
+          f"evenly {lanes['even_lane_steps']:.1f} against the longest ray's {lanes['max_steps']}")
+    for sch, t in times.items():
+        i = info[sch]
+        print(f"  {sch}: {i['registers']} registers, local {i['local_bytes']} B, "
+              f"{i['blocks_per_sm']} blocks an SM x {i['sms']} SMs; "
+              f"ms in turns {' '.join(f'{x:.3f}' for x in t)}")
+    print(f"  own schedule {own}: {best[own]:.3f} ms"
+          + (f"; refill / grid {best['refill'] / best['grid']:.4f}" if own == "refill" else "")
+          + "; lone-ray step latency "
+          + (f"{lat_us:.4f} us x {longest} steps = {lat_bound:.4f} ms" if lat_us else
+             f"not resolved over the longest ray's {longest} steps")
+          + f"; throughput bound {t_bound:.4f} ms ({t_by})")
+    return dict(ms=best[own], schedule=own, grid_ms=times["grid"],
+                refill_ms=times.get("refill"), bound_ms=t_bound, bound_by=t_by,
+                latency_bound_ms=lat_bound, step_latency_us=lat_us, steplim=steplim,
+                n_rays=rays.n_rays)
+
+
+def ptxas_lines(log):
+    """One line per kernel of nvcc's -Xptxas -v output: schedule, method,
+    destination and dtype, then registers, stack and spills."""
+    import re
+
+    methods, dests = {1: "rk4", 2: "rk45", 3: "euler"}, ("theta", "isco", "plane", "shell")
+    kernels, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            kernels.setdefault(name, {}).update(stack=m.group(1), stores=m.group(2),
+                                                loads=m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            kernels.setdefault(name, {})["regs"] = m.group(1)
+    out = []
+    for name, k in sorted(kernels.items()):
+        m = re.search(r"(march_kernel|march_refill_kernel)I([fd])Li(\d)ELi(\d)E", name)
+        if not m:
+            continue
+        sched = "grid" if m.group(1) == "march_kernel" else "refill"
+        out.append(f"{methods[int(m.group(3))]} x {dests[int(m.group(4))]} "
+                   f"{'f32' if m.group(2) == 'f' else 'f64'} ({sched}): {k.get('regs')} registers, "
+                   f"stack {k.get('stack')} B, spill stores {k.get('stores')} B, "
+                   f"loads {k.get('loads')} B")
+    return out
 
 
 def main() -> int:
@@ -427,10 +683,10 @@ def main() -> int:
     from raytrace_tpu_torch.sources import ImagePlaneGrid, PointSourceGrid
 
     with Phase("0 device"):
-        name = torch.cuda.get_device_name(0)
+        device_name = torch.cuda.get_device_name(0)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        print(f"device: {name} | torch {torch.__version__} cuda {torch.version.cuda} "
+        print(f"device: {device_name} | torch {torch.__version__} cuda {torch.version.cuda} "
               f"| devices {torch.cuda.device_count()}")
         print(f"nvidia-smi: {smi_line()}")
         print("tf32: matmul and cudnn TF32 off (nothing on the path uses them)")
@@ -440,9 +696,10 @@ def main() -> int:
         log = march_kernel.build(force=True)
         march_kernel.load()
         print(f"build: nvcc sm_90a in {time.perf_counter() - t0:.1f} s")
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
-                print(f"ptxas: {line.strip()}")
+        for line in ptxas_lines(log):
+            print(f"ptxas: {line}")
+        with tempfile.TemporaryDirectory() as tmp:
+            RATE_OPS.update(sass_rate_ops(tmp))
 
     with Phase("2 parity"):
         golden_grid = PointSourceGrid.from_steps(0.05, 0.05)
@@ -479,7 +736,8 @@ def main() -> int:
         check(devs["redshift"] < 0.005 and devs["time"] < 0.05, f"redshift/time off: {devs}")
 
     launches = {}
-    full_parity = {}
+    held = {}  # (main path, variant) -> (parity record, plain ms, plain steplim)
+    batches = []  # (main path, variant, rays, spin, march keywords, method, march dtype)
     with Phase("4 full size"):
         par = emissivity.compute_args(Config([f"--parfile={PARFILE}"]))
         n_rays = par["grid"].n_rays
@@ -515,11 +773,12 @@ def main() -> int:
         for method in ("rk45", "rk4"):
             out = march_kernel.trace_kernel(rays, par["spin"], method=method,
                                             steplim=kernel_steplim(method))
-            full_parity[method], _ = hold_full_width(f"{method}_f32", rays, par["spin"], method,
-                                                     {}, out, torch.float32, torch)
-        del rays, out
+            held["emissivity", f"{method}_theta"] = hold_full_width(
+                f"{method}_f32", rays, par["spin"], method, {}, out, torch.float32, torch)
+            batches.append(("emissivity", f"{method}_theta", rays, par["spin"], {}, method,
+                            torch.float32))
+        del out
 
-    timing = {}
     with Phase("5 timing"):
         bench_grid = PointSourceGrid.from_steps(0.01, 0.01)
         golden_grid = PointSourceGrid.from_steps(0.05, 0.05)
@@ -545,7 +804,6 @@ def main() -> int:
             print(f"kernel vs plain {method} f32 (5,040 rays, steplim {steplim}): "
                   f"kernel {k_ms:.3f} ms (best of 3), plain {p_ms:.3f} ms (one run), "
                   f"ratio {p_ms / k_ms:.1f}x, bound {b_ms:.4f} ms ({b_by})")
-            timing[f"{method}_theta"] = (k_ms, p_ms, b_ms, b_by)
 
     image_plain_ms = {}
     with Phase("6 image parity"):
@@ -623,9 +881,13 @@ def main() -> int:
             kw = dict(dest=image_dest(kind, 30.0), r_max=1.1e4)
             out = march_kernel.trace_kernel(rays, -SPIN, method=method,
                                             steplim=kernel_steplim(method), **kw)
-            full_parity[f"{method}_{kind}"], _ = hold_full_width(
+            held["disc image", f"{method}_{kind}"] = hold_full_width(
                 f"{method}_{kind}_f32", rays, -SPIN, method, kw, out, torch.float32, torch)
-        del rays, out
+        for method, kind in (("rk45", "isco"), ("euler", "theta"), ("rk4", "isco"),
+                             ("rk45", "theta"), ("rk4", "theta")):
+            batches.append(("disc image", f"{method}_{kind}", rays, -SPIN,
+                            dict(dest=image_dest(kind, 30.0), r_max=1.1e4), method, torch.float32))
+        del out
 
     with Phase("9 image timing"):
         rays = image_rays(isco_grid, torch.float32, torch)
@@ -637,15 +899,6 @@ def main() -> int:
             print(f"kernel vs plain {method}/{kind} f32 (82 x 82 image-plane rays, steplim 3000): "
                   f"kernel {k_ms:.3f} ms (best of 3), plain {p_ms:.3f} ms (one run), "
                   f"ratio {p_ms / k_ms:.1f}x, bound {b_ms:.4f} ms ({b_by})")
-            timing[f"{method}_{kind}"] = (k_ms, p_ms, b_ms, b_by)
-        rays = image_rays(full_grid, torch.float32, torch, dist=1e4, incl=80.0)
-        for method, kind in IMAGE_VARIANTS + (("rk45", "theta"),):
-            kw = dict(method=method, dest=image_dest(kind, 30.0), steplim=kernel_steplim(method),
-                      r_max=1.1e4)
-            ms, out = cuda_ms(lambda: march_kernel.trace_kernel(rays, -SPIN, **kw), torch)
-            steps = np.abs(out.steps.cpu().numpy())
-            print(f"kernel {method}/{kind} f32 at full width ({full_grid.n_rays} rays): {ms:.3f} ms, "
-                  f"steps median {np.median(steps):.0f} max {steps.max()}")
         del rays
 
     small_timing = {}
@@ -766,57 +1019,60 @@ def main() -> int:
                   f"{wall:.3f} s, {launches[variant]} kernel launch(es)")
             runs[variant] = (bench, SPIN, shell_kw, method, out)
 
-        full_timing = {}
         for variant, (rays, spin, kw, method, out) in runs.items():
-            full_parity[variant], full_timing[variant] = hold_full_width(
-                variant, rays, spin, method, kw, out, rays.r.dtype, torch)
+            path = "shell route" if "shell" in variant else "caustics"
+            held[path, variant] = hold_full_width(variant, rays, spin, method, kw, out,
+                                                  rays.r.dtype, torch)
+            batches.append((path, variant, rays, spin, kw, method, rays.r.dtype))
+        runs.clear()
 
-    with Phase("13 caustic timing"):
+    timed = {}
+    with Phase("13 schedules"):
         for tag, (k_ms, p_ms, b_ms, b_by) in small_timing.items():
             print(f"kernel vs plain {tag} (phase 10 grid, steplim 3000): kernel {k_ms:.3f} ms, "
                   f"plain {p_ms:.1f} ms, ratio {p_ms / k_ms:.0f}x, bound {b_ms:.4f} ms ({b_by})")
-        for variant, (rays, spin, kw, method, _) in runs.items():
-            steplim = kernel_steplim(method)
-            ms, out = cuda_ms(lambda: march_kernel.trace_kernel(
-                rays, spin, method=method, steplim=steplim, march_dtype=rays.r.dtype, **kw),
-                torch, repeats=2, warmup=False)
-            steps = np.abs(out.steps.cpu().numpy())
-            b_ms, b_by = march_bound(out, method, rays.r.dtype)
-            print(f"kernel {variant} at full width ({rays.n_rays} rays, steplim {steplim}): "
-                  f"{ms:.3f} ms (best of 2), steps median {np.median(steps):.0f} max "
-                  f"{steps.max()}, bound {b_ms:.4f} ms ({b_by})")
-        runs.clear()
+        for path, variant, rays, spin, kw, method, dtype in batches:
+            timed[path, variant] = time_schedules(path, variant, rays, spin, kw, method, dtype,
+                                                  torch)
+        batches.clear()
 
     print(f"nvidia-smi: {smi_line()}")
-    # (name, variant key, where its max_abs_err was measured, its timing)
+    # (name, variant key, main path whose batch timed it)
     records = [
-        ("geodesic_march_rk45_f32", "rk45_theta", full_parity["rk45"], timing["rk45_theta"]),
-        ("geodesic_march_rk4_f32", "rk4_theta", full_parity["rk4"], timing["rk4_theta"]),
-        ("geodesic_march_euler_f32", "euler_theta", full_parity["euler_theta"],
-         timing["euler_theta"]),
-        ("geodesic_march_rk4_isco_f32", "rk4_isco", full_parity["rk4_isco"], timing["rk4_isco"]),
-        ("geodesic_march_rk45_isco_f32", "rk45_isco", full_parity["rk45_isco"],
-         timing["rk45_isco"]),
-    ] + [(f"geodesic_march_{v.replace('_theta', '')}", v, full_parity[v], full_timing[v])
-         for v in [r[2] for r in CAUSTIC_RUNS] + [f"{m}_shell_f32" for m in ("euler", "rk4", "rk45")]]
-    kernels = [
-        {
+        ("geodesic_march_rk45_f32", "rk45_theta", "emissivity"),
+        ("geodesic_march_rk4_f32", "rk4_theta", "emissivity"),
+        ("geodesic_march_euler_f32", "euler_theta", "disc image"),
+        ("geodesic_march_rk4_isco_f32", "rk4_isco", "disc image"),
+        ("geodesic_march_rk45_isco_f32", "rk45_isco", "disc image"),
+    ] + [(f"geodesic_march_{v.replace('_theta', '')}", v, "caustics") for _, _, v in CAUSTIC_RUNS
+         ] + [(f"geodesic_march_{m}_shell_f32", f"{m}_shell_f32", "shell route")
+              for m in ("euler", "rk4", "rk45")]
+    kernels = []
+    for name, variant, path in records:
+        t, (p, (plain_ms, plain_steplim)) = timed[path, variant], held[path, variant]
+        kernels.append({
             "name": name,
             "route": "cuda",
             "source": SOURCE_FILE,
             "replaces": REPLACES,
             "launches": launches[variant],
             "max_abs_err": p["max_abs_err"],
-            "ms": t[0],
-            "plain_ms": t[1],
-            "bound_ms": t[2],
-            "bound_by": t[3],
+            "ms": t["ms"],
+            "plain_ms": plain_ms,
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
             "library_ms": None,
-        }
-        for name, variant, p, t in records
-    ]
+            "schedule": t["schedule"],
+            "grid_ms": t["grid_ms"],
+            "refill_ms": t["refill_ms"],
+            "latency_bound_ms": t["latency_bound_ms"],
+            "step_latency_us": t["step_latency_us"],
+            "steplim": t["steplim"],
+            "plain_steplim": plain_steplim,
+            "batch": f"{path}, {t['n_rays']} rays",
+        })
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                               "count": torch.cuda.device_count()}}))
     return 0
 

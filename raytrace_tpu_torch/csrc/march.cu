@@ -1,34 +1,67 @@
-// Geodesic march kernel for Hopper (sm_90a): one thread marches one ray.
+// Geodesic march kernel for Hopper (sm_90a): each thread marches rays.
 //
 // Replaces the TPU kernel raytrace_tpu/ops/pallas_kernel.py::_make_kernel
 // (the pl.pallas_call in _trace_pallas_padded) in every variant it builds:
 // the methods euler, rk4 and rk45 with each of its four destinations,
 // ThetaLimit/FlatDisc (dest_kind "theta"), DiscWithISCO ("isco"),
 // FlatPlane ("plane") and SphericalShell ("shell"), in float32 (as on the
-// TPU) and float64 — 24 instantiations. Like the Pallas kernel it keeps
-// each ray's whole march out of device memory: a thread loads its ray's 21
-// fields from the struct-of-arrays batch (coalesced across the warp), runs
-// the march in registers until its own ray is no longer active or max_iters
-// is reached, and stores once. Method and destination are template
-// parameters (march_kernel<T, METHOD, DEST>), so each instantiation keeps
-// only its own branch: the theta variants carry no annulus or plane test
-// and no Euler code.
+// TPU) and float64 — 24 instantiations — and the compaction schedule that
+// raytrace_tpu/ops/compaction.py runs around it. Like the Pallas kernel it
+// keeps each ray's whole march out of device memory: a thread loads its
+// ray's 21 fields from the struct-of-arrays batch, runs the march in
+// registers until the ray is no longer active or max_iters is reached, and
+// stores once. Method and destination are template parameters
+// (march_kernel<T, METHOD, DEST>), so each instantiation keeps only its own
+// branch: the theta variants carry no annulus or plane test and no Euler
+// code. The per-ray march is the state machine of march.cuh (lane_load,
+// lane_step, lane_store); both schedules below drive it.
 //
 // What bounds it on this card: not memory — each ray moves about 170 bytes
-// in and out against hundreds of steps of 1 (Euler), 4 (RK4) or 7 (DOPRI5)
-// rate evaluations, each with a sin, a cos, two square roots and a divide.
-// It is bound by FP32 (or FP64) transcendental and divide throughput and by
-// warp divergence: a warp runs until its slowest lane finishes, and stuck
-// photon-sphere rays run to steplim. DiscWithISCO adds divergence of its
-// own: a ray that crosses the plane inside the ISCO marches on to the
-// horizon while its neighbours beyond the ISCO have stopped. FlatPlane's
-// test costs a sin and two cos per committed step on top of the rates.
+// in and out against hundreds to thousands of steps of 1 (Euler), 4 (RK4)
+// or 6 (DOPRI5, with the FSAL carry) rate evaluations, each with a sin, a
+// cos, two square roots and a divide. Four things do:
+//  - the dependent scalar chain of one step: precise double sin, cos, sqrt
+//    and divide are software sequences on the FP64 pipe, pow(x, 0.2) runs
+//    once a DOPRI5 step, and built --fmad=false every a*b+c is two
+//    dependent instructions; a warp waits on that chain unless other warps
+//    hide it, so
+//  - occupancy: the f64 RK45 instantiations take 124-128 registers a
+//    thread, 4 blocks of 128 threads (16 warps, 25%) an SM;
+//  - lane, block and wave tails: a warp runs until its slowest lane ends
+//    (step counts of one batch spread from hundreds to ~10^4), a block
+//    until its slowest warp does, and the last wave of a one-thread-per-ray
+//    grid leaves SMs nearly empty;
+//  - a stuck photon-sphere ray runs to steplim: its dependent steps take at
+//    least its step count times the latency of one step.
 //
-// What the design does about that: registers only (no shared memory, no
-// spills wanted; the FSAL carry of DOPRI5 saves one of the seven rate
-// evaluations per step), and early exit per thread, so a finished ray costs
-// its warp nothing but an idle lane. Compaction, persistent blocks and
-// lifetime-aware ray ordering are left for later.
+// What the design does about them. The lane-refill schedule
+// (march_refill_kernel) launches only as many blocks as are resident at
+// once (SM count x the occupancy of the kernel) and keeps them: a warp
+// takes 32 consecutive ray indices from a global counter with one
+// atomicAdd, marches them, and takes the next 32 once all its lanes are
+// done. That removes the block and wave tails (a block of the grid launch
+// holds its SM slot until its slowest warp ends, and the last wave leaves
+// SMs empty), not the lane tail inside a warp. Refilling single lanes as
+// they free up, with a ballot of the idle lanes and one atomicAdd for all
+// of them, was measured too (at 1, 4, 8, 16 and 32 idle lanes, and with
+// warps that stop refilling while a lane's ray runs long): each pass of
+// that loop costs a ballot and leaves the ray's steps divergent from its
+// neighbours' loads, and every variant was slower than whole warps on the
+// float64 RK45 discplane batch. The RK45 lane keeps no copy of what the
+// FSAL carry holds (march.cuh, Lane): 124 registers for the f64 grid
+// kernel, 128 before; the refill kernel is built for the grid's 4 blocks
+// an SM. On an H100 (PERF.md, chip_smoke.py phase 13) the refill schedule
+// takes ~5% off the float64 RK45 discplane march, which no ray holds past
+// ~10^4 steps, so the launcher (ops/march_kernel.py) gives it that kernel
+// (refilled() below) and the grid launch (one thread per ray, ceil(n /
+// 128) blocks) to the rest. Where one stuck ray sets the time (the f64
+// RK45 plane batch) every refill variant tried was slower than the grid
+// launch: the persistent grid keeps the ray's SM full until the counter
+// runs dry, where the grid launch's retiring blocks thin it out.
+// What the design does not do: a lone stuck ray is not sped up — its steps
+// depend on one another, and bitwise agreement with the plain march fixes
+// their number and order — nor is a warp's lane tail, and the arithmetic
+// of a step is left as it is.
 //
 // Numerics: no --use_fast_math (it flushes denormals and approximates the
 // transcendentals that the finfo.tiny floors and the DOPRI5 controller rely
@@ -53,6 +86,8 @@
 // ~50% of its time (225 registers in place of 128), so it is not done.
 // The destination's parameters are rounded once from double to the working
 // type, as torch rounds the Python floats the plain march compares with.
+// Both schedules run each ray through the same IEEE operations in the same
+// order, so they give the same bits.
 
 #include <cuda_runtime.h>
 
@@ -61,51 +96,138 @@
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int SCHEDULE_GRID = 0;
+constexpr int SCHEDULE_REFILL = 1;
+// Blocks an SM the refill kernels are built for: the occupancy of the f64
+// RK45 grid kernel (124 registers, ptxas -v on sm_90a), so that the refill
+// loop's few live values cost no resident block.
+constexpr int kRefillBlocks = 4;
 
+template <typename T>
+using KernelFn = void (*)(rt::Params<T>, rt::Fields<T>, int64_t, unsigned long long*);
+
+// The grid launch: thread i marches ray i.
 template <typename T, int METHOD, int DEST>
 __global__ void __launch_bounds__(kThreads)
-    march_kernel(rt::Params<T> p, rt::Fields<T> f, int64_t n) {
+    march_kernel(rt::Params<T> p, rt::Fields<T> f, int64_t n, unsigned long long*) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i < n) rt::march_one<T, METHOD, DEST>(p, f, i);
 }
 
-template <typename T, int METHOD>
-cudaError_t launch_dest(int dest, unsigned blocks, const rt::Params<T>& p,
-                        const rt::Fields<T>& f, int64_t n, cudaStream_t stream) {
-  switch (dest) {
-    case rt::DEST_THETA:
-      march_kernel<T, METHOD, rt::DEST_THETA><<<blocks, kThreads, 0, stream>>>(p, f, n);
-      break;
-    case rt::DEST_ISCO:
-      march_kernel<T, METHOD, rt::DEST_ISCO><<<blocks, kThreads, 0, stream>>>(p, f, n);
-      break;
-    case rt::DEST_PLANE:
-      march_kernel<T, METHOD, rt::DEST_PLANE><<<blocks, kThreads, 0, stream>>>(p, f, n);
-      break;
-    case rt::DEST_SHELL:
-      march_kernel<T, METHOD, rt::DEST_SHELL><<<blocks, kThreads, 0, stream>>>(p, f, n);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+// The lane-refill schedule: a persistent warp takes the next 32 ray
+// indices from the counter `next` (one atomicAdd, by lane 0, its result
+// shuffled to the others), each lane marches its ray to the end as thread
+// i does under the grid launch, and the warp takes 32 more once all its
+// lanes are done, until the counter passes n. Indices >= n are no ray.
+template <typename T, int METHOD, int DEST>
+__global__ void __launch_bounds__(kThreads, kRefillBlocks)
+    march_refill_kernel(rt::Params<T> p, rt::Fields<T> f, int64_t n,
+                        unsigned long long* next) {
+  const unsigned lane = threadIdx.x % 32;
+  const unsigned long long count = static_cast<unsigned long long>(n);
+  for (;;) {
+    unsigned long long base = 0;
+    if (lane == 0) base = atomicAdd(next, 32ull);
+    base = __shfl_sync(0xffffffffu, base, 0);
+    if (base >= count) return;  // the same in every lane
+    if (base + lane < count)
+      rt::march_one<T, METHOD, DEST>(p, f, static_cast<int64_t>(base + lane));
   }
-  return cudaGetLastError();
+}
+
+// The instantiation that runs the lane-refill schedule, the only one whose
+// refill kernel is built (ops/march_kernel.py, _REFILLED, says the same to
+// the launcher).
+template <typename T, int METHOD, int DEST>
+constexpr bool refilled() {
+  return sizeof(T) == 8 && METHOD == rt::METHOD_RK45 && DEST == rt::DEST_ISCO;
+}
+
+// The kernel of one schedule; nullptr where it is not built.
+template <typename T, int METHOD, int DEST>
+KernelFn<T> pick(int schedule) {
+  if (schedule == SCHEDULE_GRID) return march_kernel<T, METHOD, DEST>;
+  if constexpr (refilled<T, METHOD, DEST>())
+    if (schedule == SCHEDULE_REFILL) return march_refill_kernel<T, METHOD, DEST>;
+  return nullptr;
+}
+
+template <typename T, int METHOD>
+KernelFn<T> pick_dest(int dest, int schedule) {
+  switch (dest) {
+    case rt::DEST_THETA: return pick<T, METHOD, rt::DEST_THETA>(schedule);
+    case rt::DEST_ISCO: return pick<T, METHOD, rt::DEST_ISCO>(schedule);
+    case rt::DEST_PLANE: return pick<T, METHOD, rt::DEST_PLANE>(schedule);
+    case rt::DEST_SHELL: return pick<T, METHOD, rt::DEST_SHELL>(schedule);
+    default: return nullptr;
+  }
+}
+
+template <typename T>
+KernelFn<T> pick_method(int method, int dest, int schedule) {
+  if (method == rt::METHOD_RK4) return pick_dest<T, rt::METHOD_RK4>(dest, schedule);
+  if (method == rt::METHOD_RK45) return pick_dest<T, rt::METHOD_RK45>(dest, schedule);
+  if (method == rt::METHOD_EULER) return pick_dest<T, rt::METHOD_EULER>(dest, schedule);
+  return nullptr;
+}
+
+// Blocks of `kernel` resident on an SM of the current device, and the SMs.
+cudaError_t occupancy(const void* kernel, int* per_sm, int* sms) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, kernel, kThreads, 0);
+  return err;
+}
+
+// Blocks of a refill kernel resident on the card at once, queried on its
+// first launch and kept (one card per process).
+cudaError_t resident_blocks(const void* kernel, unsigned* blocks) {
+  constexpr int kSlots = 8;  // more than the refill kernels built
+  static const void* kernels[kSlots];
+  static unsigned resident[kSlots];
+  int s = 0;
+  for (; s < kSlots && kernels[s] != nullptr; ++s)
+    if (kernels[s] == kernel) {
+      *blocks = resident[s];
+      return cudaSuccess;
+    }
+  int per_sm = 0, sms = 0;
+  const cudaError_t err = occupancy(kernel, &per_sm, &sms);
+  if (err != cudaSuccess) return err;
+  if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+  *blocks = static_cast<unsigned>(per_sm) * static_cast<unsigned>(sms);
+  if (s < kSlots) {
+    resident[s] = *blocks;
+    kernels[s] = kernel;
+  }
+  return cudaSuccess;
 }
 
 template <typename T>
 cudaError_t launch(void* const* ptr, int64_t n, double spin, double r_max, double horizon,
                    int dest, const double* dest_params, int steplim, int max_iters,
-                   const double* ctrl, int method, cudaStream_t stream) {
+                   const double* ctrl, int method, int schedule, unsigned long long* next,
+                   cudaStream_t stream) {
+  const KernelFn<T> kernel = pick_method<T>(method, dest, schedule);
+  if (kernel == nullptr) return cudaErrorInvalidValue;
   const rt::Params<T> p =
       rt::make_params<T>(spin, r_max, horizon, dest_params, steplim, max_iters, ctrl);
   const rt::Fields<T> f = rt::make_fields<T>(ptr);
-  const unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  if (method == rt::METHOD_RK4)
-    return launch_dest<T, rt::METHOD_RK4>(dest, blocks, p, f, n, stream);
-  if (method == rt::METHOD_RK45)
-    return launch_dest<T, rt::METHOD_RK45>(dest, blocks, p, f, n, stream);
-  if (method == rt::METHOD_EULER)
-    return launch_dest<T, rt::METHOD_EULER>(dest, blocks, p, f, n, stream);
-  return cudaErrorInvalidValue;
+  unsigned blocks = static_cast<unsigned>((n + kThreads - 1) / kThreads);
+  if (schedule == SCHEDULE_REFILL) {
+    if (next == nullptr) return cudaErrorInvalidValue;
+    unsigned resident = 0;
+    const cudaError_t err = resident_blocks(reinterpret_cast<const void*>(kernel), &resident);
+    if (err != cudaSuccess) return err;
+    if (resident < blocks) blocks = resident;
+  }
+  void* args[] = {const_cast<rt::Params<T>*>(&p), const_cast<rt::Fields<T>*>(&f), &n, &next};
+  const cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
+                                           dim3(kThreads), args, 0, stream);
+  const cudaError_t last = cudaGetLastError();  // also clears a refused launch's error
+  return err != cudaSuccess ? err : last;
 }
 
 }  // namespace
@@ -119,7 +241,9 @@ extern "C" {
 // 2 = FlatPlane (sin incl, cos incl, phi0, z_s), 3 = SphericalShell
 // (r_shell); unused parameters are ignored.
 // dtype: 0 = float32, 1 = float64. ctrl holds the 11 StepControl values in
-// declaration order.
+// declaration order. schedule: 0 = grid launch, 1 = lane refill (built for
+// the refilled() instantiations only), whose `next` is a zeroed device
+// uint64 (the ray counter, fresh for every launch).
 int rt_march_launch(void* t, void* r, void* theta, void* phi, void* pt, void* pr,
                     void* ptheta, void* pphi, void* k, void* h, void* Q,
                     void* rdot_sign, void* thetadot_sign, void* dt, void* emit,
@@ -130,7 +254,8 @@ int rt_march_launch(void* t, void* r, void* theta, void* phi, void* pt, void* pr
                     int max_iters, double precision, double theta_precision, double max_tstep,
                     double maxtstep_rlim, double max_phistep, double min_step,
                     double rk45_tol, double horizon_eps, double safety, double fac_min,
-                    double fac_max, int method, int dtype, void* stream) {
+                    double fac_max, int method, int dtype, int schedule, void* next,
+                    void* stream) {
   void* const ptr[21] = {t, r, theta, phi, pt, pr, ptheta, pphi, k, h, Q,
                          rdot_sign, thetadot_sign, dt, emit, steps, status,
                          rdot_flips, eq_cross, r_was_positive, theta_was_positive};
@@ -140,12 +265,31 @@ int rt_march_launch(void* t, void* r, void* theta, void* phi, void* pt, void* pr
                            safety, fac_min, fac_max};
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  auto* counter = static_cast<unsigned long long*>(next);
   const cudaError_t err =
       dtype == 0 ? launch<float>(ptr, n, spin, r_max, horizon, dest, dest_params, steplim,
-                                 max_iters, ctrl, method, s)
+                                 max_iters, ctrl, method, schedule, counter, s)
       : dtype == 1 ? launch<double>(ptr, n, spin, r_max, horizon, dest, dest_params,
-                                    steplim, max_iters, ctrl, method, s)
+                                    steplim, max_iters, ctrl, method, schedule, counter, s)
                    : cudaErrorInvalidValue;
+  return static_cast<int>(err);
+}
+
+// What the card makes of one kernel (method, dest, dtype and schedule as
+// rt_march_launch takes them): out[0] blocks resident on an SM, out[1]
+// SMs, out[2] registers a thread, out[3] local memory a thread in bytes
+// (stack and spills). Returns a CUDA error code, 0 on success.
+int rt_march_kernel_info(int method, int dest, int dtype, int schedule, int* out) {
+  const void* kernel =
+      dtype == 0 ? reinterpret_cast<const void*>(pick_method<float>(method, dest, schedule))
+      : dtype == 1 ? reinterpret_cast<const void*>(pick_method<double>(method, dest, schedule))
+                   : nullptr;
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = occupancy(kernel, &out[0], &out[1]);
+  out[2] = attr.numRegs;
+  out[3] = static_cast<int>(attr.localSizeBytes);
   return static_cast<int>(err);
 }
 

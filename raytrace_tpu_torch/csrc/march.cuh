@@ -378,9 +378,10 @@ RT_HD void euler_rk4_step(Ray<T>& ray, const Params<T>& p, T capture) {
 }
 
 // One DOPRI5 iteration (_rk45_body). `step` is the carried adaptive step
-// and `k1` the FSAL carry: rates at the current point.
+// and `k1` the FSAL carry: rates at the current point. Returns whether a
+// step was accepted (and committed).
 template <typename T, int DEST>
-RT_HD void rk45_step(Ray<T>& ray, const Params<T>& p, T capture, T& step, Rates<T>& k1) {
+RT_HD bool rk45_step(Ray<T>& ray, const Params<T>& p, T capture, T& step, Rates<T>& k1) {
   const Spin<T>& a = p.spin;
   const Ctrl<T>& c = p.c;
   k1.ptheta = m_abs(k1.ptheta) * ray.thetadot_sign;
@@ -391,11 +392,11 @@ RT_HD void rk45_step(Ray<T>& ray, const Params<T>& p, T capture, T& step, Rates<
   ray.twp = s.twp;
   if (s.theta_flip) {  // skips the step, counts it; step and carry unchanged
     count_step(ray, p, true, false);
-    return;
+    return false;
   }
   if (!k1_checks(ray, a.a, k1, s.pr1)) {
     count_step(ray, p, false, false);
-    return;
+    return false;
   }
   const T pt1 = k1.pt, pr1 = s.pr1, pth1 = k1.ptheta, pph1 = k1.pphi;
   const T r = ray.r, theta = ray.theta;
@@ -481,45 +482,94 @@ RT_HD void rk45_step(Ray<T>& ray, const Params<T>& p, T capture, T& step, Rates<
     k1 = k7;
   }
   count_step(ray, p, accept, s.r_flip);
+  return accept;
 }
 
-// March ray i of the batch to termination (or max_iters) and store it.
-template <typename T, int METHOD, int DEST>
-RT_HD void march_one(const Params<T>& p, const Fields<T>& f, int64_t i) {
-  Ray<T> ray{f.t[i], f.r[i], f.theta[i], f.phi[i], f.pt[i], f.pr[i], f.ptheta[i],
-             f.pphi[i], f.k[i], f.h[i], f.Q[i], f.rdot_sign[i], f.thetadot_sign[i],
-             f.dt[i], f.steps[i], f.status[i], f.rdot_flips[i], f.eq_cross[i],
-             f.r_was_positive[i], f.theta_was_positive[i]};
-
-  // capture shell floored at 200 ulp of the working type (_commit)
+// capture shell floored at 200 ulp of the working type (_commit)
+template <typename T> RT_HD T capture_radius(const Params<T>& p) {
   const T eps_eff = vmax(p.c.horizon_eps, T(200) * Lim<T>::eps());
-  const T capture = p.horizon * (T(1) + eps_eff);
+  return p.horizon * (T(1) + eps_eff);
+}
 
-  if (is_active(ray)) {
-    if (METHOD == METHOD_RK45) {
-      T step = ray.dt;
-      Rates<T> k1 = geodesic_rates(ray.r, ray.theta, ray.k, ray.h, ray.Q, ray.rdot_sign,
-                                   ray.thetadot_sign, p.spin);
-      for (int it = 0; it < p.max_iters && is_active(ray); ++it)
-        rk45_step<T, DEST>(ray, p, capture, step, k1);
-      ray.dt = step;
-    } else {
-      for (int it = 0; it < p.max_iters && is_active(ray); ++it)
-        euler_rk4_step<T, METHOD, DEST>(ray, p, capture);
-    }
+// The march of one ray as a state machine with three operations (load,
+// one iteration, store), which march_one runs for the grid launch and,
+// ray after ray in each lane, for the lane-refill schedule (march.cu).
+// Everything a ray carries between iterations lives here and is set
+// afresh by lane_load: the step budget `it`, and for RK45 the adaptive
+// step and the FSAL carry k1.
+// An RK45 lane keeps no copy of what k1 holds: once a step is accepted
+// (`moved`), the ray's pt, pr and pphi are k1's, bit for bit, until the
+// next accepted step, so the store takes them from k1 and the march never
+// reads ray.pt, ray.pr or ray.pphi (nor ray.dt, which `step` carries).
+// ray.ptheta stays: each iteration rewrites k1.ptheta's sign.
+template <typename T> struct Lane {
+  Ray<T> ray;
+  int64_t i;     // the ray's index in the batch
+  int it;        // iterations of this ray so far (max_iters is per ray)
+  T step;        // RK45: the carried adaptive step
+  Rates<T> k1;   // RK45: rates at the current point
+  bool moved;    // RK45: a step was accepted since the load
+};
+
+// Load ray i; an RK45 ray that is active takes its step from dt and its
+// FSAL carry from the rates at its starting point.
+template <typename T, int METHOD>
+RT_HD void lane_load(const Params<T>& p, const Fields<T>& f, int64_t i, Lane<T>& l) {
+  l.ray = Ray<T>{f.t[i], f.r[i], f.theta[i], f.phi[i], f.pt[i], f.pr[i], f.ptheta[i],
+                 f.pphi[i], f.k[i], f.h[i], f.Q[i], f.rdot_sign[i], f.thetadot_sign[i],
+                 f.dt[i], f.steps[i], f.status[i], f.rdot_flips[i], f.eq_cross[i],
+                 f.r_was_positive[i], f.theta_was_positive[i]};
+  l.i = i;
+  l.it = 0;
+  l.moved = false;
+  if (METHOD == METHOD_RK45) {
+    l.step = l.ray.dt;
+    if (is_active(l.ray))
+      l.k1 = geodesic_rates(l.ray.r, l.ray.theta, l.ray.k, l.ray.h, l.ray.Q,
+                            l.ray.rdot_sign, l.ray.thetadot_sign, p.spin);
   }
-  // stuck rays get their (positive) step count negated
+}
+
+// Whether the lane's ray takes another iteration.
+template <typename T> RT_HD bool lane_running(const Params<T>& p, const Lane<T>& l) {
+  return l.it < p.max_iters && is_active(l.ray);
+}
+
+// One iteration of the lane's ray (the caller has checked lane_running).
+template <typename T, int METHOD, int DEST>
+RT_HD void lane_step(const Params<T>& p, T capture, Lane<T>& l) {
+  if (METHOD == METHOD_RK45)
+    l.moved = rk45_step<T, DEST>(l.ray, p, capture, l.step, l.k1) || l.moved;
+  else
+    euler_rk4_step<T, METHOD, DEST>(l.ray, p, capture);
+  ++l.it;
+}
+
+// Store the lane's ray back into slot l.i; stuck rays get their (positive)
+// step count negated. An RK45 ray that never moved keeps the momentum it
+// was loaded with, in place.
+template <typename T, int METHOD>
+RT_HD void lane_store(const Fields<T>& f, Lane<T>& l) {
+  Ray<T>& ray = l.ray;
+  if (METHOD == METHOD_RK45) ray.dt = l.step;
   if ((ray.status & (STATUS_STEPLIM | STATUS_NUMERIC)) != 0 && ray.steps > 0)
     ray.steps = -ray.steps;
-
+  const int64_t i = l.i;
   f.t[i] = ray.t;
   f.r[i] = ray.r;
   f.theta[i] = ray.theta;
   f.phi[i] = ray.phi;
-  f.pt[i] = ray.pt;
-  f.pr[i] = ray.pr;
-  f.ptheta[i] = ray.ptheta;
-  f.pphi[i] = ray.pphi;
+  if (METHOD != METHOD_RK45) {
+    f.pt[i] = ray.pt;
+    f.pr[i] = ray.pr;
+    f.ptheta[i] = ray.ptheta;
+    f.pphi[i] = ray.pphi;
+  } else if (l.moved) {
+    f.pt[i] = l.k1.pt;
+    f.pr[i] = l.k1.pr;
+    f.ptheta[i] = ray.ptheta;
+    f.pphi[i] = l.k1.pphi;
+  }
   f.rdot_sign[i] = ray.rdot_sign;
   f.thetadot_sign[i] = ray.thetadot_sign;
   f.dt[i] = ray.dt;
@@ -529,6 +579,16 @@ RT_HD void march_one(const Params<T>& p, const Fields<T>& f, int64_t i) {
   f.eq_cross[i] = ray.eq_cross;
   f.r_was_positive[i] = ray.rwp;
   f.theta_was_positive[i] = ray.twp;
+}
+
+// March ray i of the batch to termination (or max_iters) and store it.
+template <typename T, int METHOD, int DEST>
+RT_HD void march_one(const Params<T>& p, const Fields<T>& f, int64_t i) {
+  const T capture = capture_radius(p);
+  Lane<T> l;
+  lane_load<T, METHOD>(p, f, i, l);
+  while (lane_running(p, l)) lane_step<T, METHOD, DEST>(p, capture, l);
+  lane_store<T, METHOD>(f, l);
 }
 
 // Build the march scalars in the working type from the caller's doubles.

@@ -1,9 +1,12 @@
-// Host build of the per-ray march in march.cuh, one ray after another.
+// Host build of the per-ray march in march.cuh, one ray after another,
+// and an emulation of the lane-refill schedule.
 //
 // The CUDA kernel (march.cu) runs the same march_one<T, METHOD, DEST> per
 // thread; this file lets the CPU tests check that step logic with g++
 // against the plain torch march, where no CUDA compiler or card exists. Same
-// argument list as rt_march_launch, without the stream.
+// argument list as rt_march_launch up to dtype, then `warps`: 0 marches
+// ray after ray (march_one); w > 0 hands the rays out as
+// march_refill_kernel does, 32 at a time to w warps sharing one counter.
 //
 //   g++ -x c++ -std=c++17 -O2 -ffp-contract=off -shared -fPIC march_host.cpp
 
@@ -11,18 +14,43 @@
 
 namespace {
 
+// The lane-refill schedule over `warps` warps sharing one counter: each
+// warp in turn takes the next 32 ray indices with one counter add and
+// marches those below n, lane after lane, as march_refill_kernel does.
 template <typename T, int METHOD, int DEST>
-void run(const rt::Params<T>& p, const rt::Fields<T>& f, int64_t n) {
-  for (int64_t i = 0; i < n; ++i) rt::march_one<T, METHOD, DEST>(p, f, i);
+void run_refill(const rt::Params<T>& p, const rt::Fields<T>& f, int64_t n, int warps) {
+  const uint64_t count = static_cast<uint64_t>(n);
+  uint64_t next = 0;
+  for (bool live = true; live;) {
+    live = false;
+    for (int w = 0; w < warps; ++w) {
+      const uint64_t base = next;
+      next += 32;
+      if (base >= count) continue;
+      live = true;
+      for (uint64_t lane = 0; lane < 32; ++lane)
+        if (base + lane < count)
+          rt::march_one<T, METHOD, DEST>(p, f, static_cast<int64_t>(base + lane));
+    }
+  }
+}
+
+// warps = 0: march_one ray after ray; otherwise the refill schedule.
+template <typename T, int METHOD, int DEST>
+void run(const rt::Params<T>& p, const rt::Fields<T>& f, int64_t n, int warps) {
+  if (warps > 0)
+    run_refill<T, METHOD, DEST>(p, f, n, warps);
+  else
+    for (int64_t i = 0; i < n; ++i) rt::march_one<T, METHOD, DEST>(p, f, i);
 }
 
 template <typename T, int METHOD>
-int run_dest(int dest, const rt::Params<T>& p, const rt::Fields<T>& f, int64_t n) {
+int run_dest(int dest, const rt::Params<T>& p, const rt::Fields<T>& f, int64_t n, int warps) {
   switch (dest) {
-    case rt::DEST_THETA: run<T, METHOD, rt::DEST_THETA>(p, f, n); return 0;
-    case rt::DEST_ISCO: run<T, METHOD, rt::DEST_ISCO>(p, f, n); return 0;
-    case rt::DEST_PLANE: run<T, METHOD, rt::DEST_PLANE>(p, f, n); return 0;
-    case rt::DEST_SHELL: run<T, METHOD, rt::DEST_SHELL>(p, f, n); return 0;
+    case rt::DEST_THETA: run<T, METHOD, rt::DEST_THETA>(p, f, n, warps); return 0;
+    case rt::DEST_ISCO: run<T, METHOD, rt::DEST_ISCO>(p, f, n, warps); return 0;
+    case rt::DEST_PLANE: run<T, METHOD, rt::DEST_PLANE>(p, f, n, warps); return 0;
+    case rt::DEST_SHELL: run<T, METHOD, rt::DEST_SHELL>(p, f, n, warps); return 0;
     default: return 1;
   }
 }
@@ -30,13 +58,13 @@ int run_dest(int dest, const rt::Params<T>& p, const rt::Fields<T>& f, int64_t n
 template <typename T>
 int run_all(void* const* ptr, int64_t n, double spin, double r_max, double horizon, int dest,
             const double* dest_params, int steplim, int max_iters, const double* ctrl,
-            int method) {
+            int method, int warps) {
   const rt::Params<T> p =
       rt::make_params<T>(spin, r_max, horizon, dest_params, steplim, max_iters, ctrl);
   const rt::Fields<T> f = rt::make_fields<T>(ptr);
-  if (method == rt::METHOD_RK4) return run_dest<T, rt::METHOD_RK4>(dest, p, f, n);
-  if (method == rt::METHOD_RK45) return run_dest<T, rt::METHOD_RK45>(dest, p, f, n);
-  if (method == rt::METHOD_EULER) return run_dest<T, rt::METHOD_EULER>(dest, p, f, n);
+  if (method == rt::METHOD_RK4) return run_dest<T, rt::METHOD_RK4>(dest, p, f, n, warps);
+  if (method == rt::METHOD_RK45) return run_dest<T, rt::METHOD_RK45>(dest, p, f, n, warps);
+  if (method == rt::METHOD_EULER) return run_dest<T, rt::METHOD_EULER>(dest, p, f, n, warps);
   return 1;
 }
 
@@ -94,7 +122,7 @@ extern "C" int rt_march_host(void* t, void* r, void* theta, void* phi, void* pt,
                              double max_phistep, double min_step, double rk45_tol,
                              double horizon_eps,
                              double safety, double fac_min, double fac_max, int method,
-                             int dtype) {
+                             int dtype, int warps) {
   void* const ptr[21] = {t, r, theta, phi, pt, pr, ptheta, pphi, k, h, Q,
                          rdot_sign, thetadot_sign, dt, emit, steps, status,
                          rdot_flips, eq_cross, r_was_positive, theta_was_positive};
@@ -102,11 +130,12 @@ extern "C" int rt_march_host(void* t, void* r, void* theta, void* phi, void* pt,
   const double ctrl[11] = {precision, theta_precision, max_tstep, maxtstep_rlim,
                            max_phistep, min_step, rk45_tol, horizon_eps,
                            safety, fac_min, fac_max};
+  if (warps < 0) return 1;
   if (dtype == 0)
     return run_all<float>(ptr, n, spin, r_max, horizon, dest, dest_params, steplim,
-                          max_iters, ctrl, method);
+                          max_iters, ctrl, method, warps);
   if (dtype == 1)
     return run_all<double>(ptr, n, spin, r_max, horizon, dest, dest_params, steplim,
-                           max_iters, ctrl, method);
+                           max_iters, ctrl, method, warps);
   return 1;
 }

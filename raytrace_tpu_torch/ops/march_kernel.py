@@ -1,11 +1,15 @@
 """The geodesic march as a hand-written CUDA kernel for Hopper.
 
-Counterpart of ``raytrace_tpu/ops/pallas_kernel.py::trace_pallas``: the
-kernel (``csrc/march.cu`` on the per-ray step of ``csrc/march.cuh``)
-marches every ray to termination in registers, one thread per ray, for
-``euler``, ``rk4`` and ``rk45`` with each of the ``ThetaLimit``/``FlatDisc``,
-``DiscWithISCO``, ``FlatPlane`` and ``SphericalShell`` destinations, in
-float32 (the default, as on the TPU) or float64. The plain version is
+Counterpart of ``raytrace_tpu/ops/pallas_kernel.py::trace_pallas`` and of
+the compaction schedule ``trace_pallas_fused`` runs it under: the kernel
+(``csrc/march.cu`` on the per-ray step of ``csrc/march.cuh``) marches every
+ray to termination in registers for ``euler``, ``rk4`` and ``rk45`` with
+each of the ``ThetaLimit``/``FlatDisc``, ``DiscWithISCO``, ``FlatPlane`` and
+``SphericalShell`` destinations, in float32 (the default, as on the TPU) or
+float64. Each instantiation runs under the schedule ``schedule_of`` gives
+it: the grid launch (one thread per ray) or the lane-refill schedule (as
+many blocks as are resident, each warp taking the next 32 rays from a
+counter once all its lanes are done), both bitwise alike. The plain version is
 ``ops/integrate.py::trace``; ``ops.trace_auto`` picks one of the two by the
 device of the batch.
 
@@ -52,6 +56,14 @@ B_FIELDS = ("r_was_positive", "theta_was_positive")
 _METHOD_CODE = {"rk4": 1, "rk45": 2, "euler": 3}
 _DEST_THETA, _DEST_ISCO, _DEST_PLANE, _DEST_SHELL = 0, 1, 2, 3
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_SCHEDULE_CODE = {"grid": 0, "refill": 1}
+
+# The instantiations that run the lane-refill schedule, by (method,
+# destination code, march dtype): the float64 RK45 isco kernel of the
+# discplane caustics, the one where it measured faster than the grid
+# launch (PERF.md; csrc/march.cu builds a refill kernel for it alone,
+# refilled()). Every other one runs the grid launch.
+_REFILLED = {("rk45", _DEST_ISCO, torch.float64)}
 
 # Kernel launches so far: counted where the kernel is launched, nowhere else.
 launches = 0
@@ -59,15 +71,23 @@ launches = 0
 _lib = None
 
 
-def argtypes(stream: bool = True):
-    """ctypes argument list of rt_march_launch (without the trailing stream
-    for the host build's rt_march_host): 21 pointers, n, spin, r_max,
-    horizon, the destination code and its four parameters, steplim,
-    max_iters, the 11 StepControl values, method and dtype."""
+def argtypes(host: bool = False):
+    """ctypes argument list of rt_march_launch: 21 pointers, n, spin,
+    r_max, horizon, the destination code and its four parameters, steplim,
+    max_iters, the 11 StepControl values, method and dtype, then the
+    schedule, the counter and the stream; with
+    ``host``, that of the host build's rt_march_host, whose dtype is
+    followed by the number of emulated warps (0: ray after ray)."""
     c = ctypes
     types = [c.c_void_p] * 21 + [c.c_int64] + [c.c_double] * 3 + [c.c_int]
     types += [c.c_double] * 4 + [c.c_int] * 2 + [c.c_double] * 11 + [c.c_int, c.c_int]
-    return types + [c.c_void_p] if stream else types
+    return types + [c.c_int] if host else types + [c.c_int, c.c_void_p, c.c_void_p]
+
+
+def schedule_of(method: str, dest, march_dtype) -> str:
+    """The schedule the kernel runs ``method`` towards ``dest`` in
+    ``march_dtype`` under: "refill" or "grid"."""
+    return "refill" if (method, _dest_args(dest)[0], march_dtype) in _REFILLED else "grid"
 
 
 def _nvcc() -> str:
@@ -80,28 +100,42 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: cannot build the march kernel")
 
 
+def nvcc_command(source, out) -> list:
+    """nvcc's command line for a march library: sm_90a, no FMA contraction
+    (``--fmad=false``), so the kernel rounds like the plain march (see the
+    note in march.cu), and ``-Xptxas -v`` (registers, stack and spills per
+    kernel)."""
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+        "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-o", str(out), str(source),
+    ]
+
+
 def build(force: bool = False) -> str:
-    """Compile ``csrc/march.cu`` for sm_90a into ``_build/libraytrace_march.so``
-    unless the library is newer than its sources. No FMA contraction
-    (``--fmad=false``), so the kernel rounds like the plain march; see the
-    note in march.cu. Returns nvcc's output
-    (``-Xptxas -v``: registers and spills per kernel), empty when the
-    library was up to date."""
+    """Compile ``csrc/march.cu`` into ``_build/libraytrace_march.so``
+    (``nvcc_command``) unless the library is newer than its sources.
+    Returns nvcc's output, empty when the library was up to date."""
     if not force and _LIB.exists():
         if _LIB.stat().st_mtime >= max(s.stat().st_mtime for s in _SOURCES):
             return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{_LIB.name}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(tmp), str(CSRC / "march.cu"),
-    ]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(nvcc_command(CSRC / "march.cu", tmp), capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, _LIB)
     return proc.stdout + proc.stderr
+
+
+def open_library(path):
+    """A built march library, its entry points declared."""
+    lib = ctypes.CDLL(str(path))
+    lib.rt_march_launch.argtypes = argtypes()
+    lib.rt_march_launch.restype = ctypes.c_int
+    lib.rt_march_kernel_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.rt_march_kernel_info.restype = ctypes.c_int
+    return lib
 
 
 def load():
@@ -109,11 +143,20 @@ def load():
     global _lib
     if _lib is None:
         build()
-        lib = ctypes.CDLL(str(_LIB))
-        lib.rt_march_launch.argtypes = argtypes(stream=True)
-        lib.rt_march_launch.restype = ctypes.c_int
-        _lib = lib
+        _lib = open_library(_LIB)
     return _lib
+
+
+def kernel_info(method: str, dest, march_dtype, schedule: str) -> dict:
+    """What the card makes of one built kernel, ``schedule`` "grid" or
+    "refill": blocks resident on an SM, SMs, registers and local-memory
+    bytes (stack and spills) a thread."""
+    out = (ctypes.c_int * 4)()
+    err = load().rt_march_kernel_info(_METHOD_CODE[method], _dest_args(dest)[0],
+                                      _DTYPE_CODE[march_dtype], _SCHEDULE_CODE[schedule], out)
+    if err != 0:
+        raise RuntimeError(f"rt_march_kernel_info failed with CUDA error {err}")
+    return dict(blocks_per_sm=out[0], sms=out[1], registers=out[2], local_bytes=out[3])
 
 
 def _dest_args(dest) -> list:
@@ -210,10 +253,20 @@ def trace_kernel(
     ThetaLimit, DiscWithISCO, FlatPlane or SphericalShell).
 
     The batch must live on a CUDA device. Launches once on the current
-    stream and does not synchronise; returns the same RayBatch contract as
-    ``trace``, with the final theta-crossing back-interpolation.
+    stream, under the instantiation's schedule (``schedule_of``), and does
+    not synchronise; returns the same RayBatch contract as ``trace``, with
+    the final theta-crossing back-interpolation.
     """
-    global launches
+    return _trace(rays, spin, None, method=method, dest=dest, r_max=r_max, steplim=steplim,
+                  ctrl=ctrl, boundary=boundary, refine_crossing=refine_crossing,
+                  march_dtype=march_dtype)
+
+
+def _trace(rays: RayBatch, spin, schedule, *, method, dest, r_max, steplim, ctrl, boundary,
+           refine_crossing, march_dtype) -> RayBatch:
+    """``trace_kernel`` under ``schedule``: None for the instantiation's
+    own, else "grid" or "refill". chip_smoke.py and a cuda test pass one
+    to hold the two schedules against each other; nothing else does."""
     if not rays.r.is_cuda:
         raise ValueError("trace_kernel needs a batch on a CUDA device; "
                          "ops.integrate.trace is the plain version")
@@ -222,12 +275,23 @@ def trace_kernel(
         boundary=boundary, march_dtype=march_dtype,
     )
     if rays.n_rays > 0:
-        lib = load()
-        device = rays.r.device
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = lib.rt_march_launch(*pointers(buf), *scalars, stream)
-        if err != 0:
-            raise RuntimeError(f"rt_march_launch failed with CUDA error {err}")
-        launches += 1
+        _launch(buf, scalars, schedule or schedule_of(method, dest, march_dtype))
     return finish(rays, buf, dest, spin, refine_crossing)
+
+
+def _launch(buf: dict, scalars: list, schedule: str) -> None:
+    """One launch of the kernel on ``prepare``'s buffers and scalars under
+    ``schedule`` ("grid" or "refill"), on the current stream of their
+    device, counted in ``launches``; raises on a CUDA error."""
+    global launches
+    lib = load()
+    device = buf["r"].device
+    # the refill schedule's ray counter, zero for every launch
+    counter = torch.zeros(1, dtype=torch.int64, device=device) if schedule == "refill" else None
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.rt_march_launch(*pointers(buf), *scalars, _SCHEDULE_CODE[schedule],
+                                  None if counter is None else counter.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"rt_march_launch failed with CUDA error {err}")
+    launches += 1

@@ -186,7 +186,8 @@ def test_kernel_wrapper_buffers_follow_launch_order():
     assert all(buf[f].dtype == torch.float32 for f in march_kernel.F_FIELDS)
     assert all(buf[f].dtype == torch.int32 for f in march_kernel.I_FIELDS)
     assert all(buf[f].dtype == torch.bool for f in march_kernel.B_FIELDS)
-    assert len(scalars) + 21 + 1 == len(march_kernel.argtypes(stream=True))
+    # then the schedule, the counter and the stream
+    assert len(scalars) + 21 + 3 == len(march_kernel.argtypes())
     assert isinstance(dest, ThetaLimit) and scalars[4:9] == [0, np.pi / 2, 0.0, 0.0, 0.0]
     assert scalars[10] == 100 + 25 + 16
     assert torch.equal(rays.r, r_before)
@@ -241,6 +242,41 @@ def test_trace_kernel_matches_plain_march_on_cuda(method, dtype):
     else:
         _assert_agree(live, a, b, med_dr=1e-5, status_rate=0.98, steps_rate=0.98,
                       relative=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("method", ["euler", "rk4", "rk45"])
+def test_kernel_schedules(method, dtype):
+    """The float64 RK45 DiscWithISCO kernel runs the lane-refill schedule,
+    every other instantiation the grid launch."""
+    for dest in (ThetaLimit(), DiscWithISCO(1.2, R_DISC), FlatPlane(0.5, 0.0, 500.0),
+                 SphericalShell(40.0)):
+        refilled = (method == "rk45" and dtype == torch.float64
+                    and isinstance(dest, DiscWithISCO))
+        assert march_kernel.schedule_of(method, dest, dtype) == (
+            "refill" if refilled else "grid")
+
+
+@pytest.mark.cuda
+def test_refill_schedule_matches_grid_launch_on_cuda():
+    """The float64 RK45 DiscWithISCO kernel under the lane-refill schedule
+    gives every field of the grid launch's result bit for bit on the bench
+    grid (125,800 rays against the 67,584 lanes resident at 4 blocks of 128
+    an SM, so warps take rays more than once), launch after launch, with
+    the counter fresh for every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the march kernel has no CPU build")
+    rays = from_numpy(to_numpy(_port_source(0.01)), device="cuda")
+    kw = dict(dest=DiscWithISCO(isco_radius(SPIN), R_DISC), method="rk45", steplim=STEPLIM,
+              march_dtype=torch.float64, refine_crossing=False, ctrl=march_kernel.StepControl(),
+              boundary=None, r_max=1000.0)
+    grid = march_kernel._trace(rays, SPIN, "grid", **kw)
+    assert int((grid.status & 1).sum()) > 100
+    for launch in range(2):
+        refill = march_kernel._trace(rays, SPIN, "refill", **kw)
+        for f in march_kernel.F_FIELDS + march_kernel.I_FIELDS + march_kernel.B_FIELDS:
+            a, b = getattr(refill, f).cpu().numpy(), getattr(grid, f).cpu().numpy()
+            assert np.array_equal(a.view(np.uint8), b.view(np.uint8)), (f, launch)
 
 
 @pytest.mark.cuda

@@ -10,8 +10,12 @@ rk45 on the golden 0.05 lamppost grid, the image-plane slice's variants
 backward-traced image-plane rays, and the caustics slice's (Euler with
 DiscWithISCO; FlatPlane and SphericalShell with every method). Each
 destination's ``reached`` is also checked point by point against the plain
-one in float32 (``rt_reached_host``).
+one in float32 (``rt_reached_host``). The lane-refill schedule of the
+kernel, emulated warp by warp on the same lane state machine, is held
+bitwise to the ray-after-ray march for every instantiation.
 """
+
+import dataclasses
 
 import ctypes
 import ctypes.util
@@ -40,23 +44,28 @@ R_DISC = 20.0
 NEW_VARIANTS = [("rk4", "isco"), ("rk45", "isco"), ("euler", "theta")]
 
 
-@pytest.fixture(scope="module")
-def host_lib(tmp_path_factory):
+def _build_host_lib(src_dir, out_dir):
     cxx = shutil.which("g++")
     if cxx is None:
         pytest.skip("no g++ to build the host march")
-    out = tmp_path_factory.mktemp("march_host") / "libmarch_host.so"
+    out = out_dir / "libmarch_host.so"
     cmd = [cxx, "-x", "c++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC",
-           "-o", str(out), str(march_kernel.CSRC / "march_host.cpp")]
+           "-o", str(out), str(src_dir / "march_host.cpp")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     assert proc.returncode == 0, proc.stderr
     lib = ctypes.CDLL(str(out))
-    lib.rt_march_host.argtypes = march_kernel.argtypes(stream=False)
+    lib.rt_march_host.argtypes = march_kernel.argtypes(host=True)
     lib.rt_march_host.restype = ctypes.c_int
     lib.rt_reached_host.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int]
                                     + [ctypes.c_double] * 4 + [ctypes.c_int, ctypes.c_void_p])
     lib.rt_reached_host.restype = ctypes.c_int
     return lib
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    return _build_host_lib(march_kernel.CSRC, tmp_path_factory.mktemp("march_host"))
+
 
 
 def host_reached(lib, dest, r, theta, phi, prev):
@@ -77,7 +86,7 @@ def host_trace(lib, rays, spin, method, steplim, dtype=torch.float64, dest=None,
     prepared, dest, buf, scalars = march_kernel.prepare(
         rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim,
         ctrl=StepControl(), boundary=boundary, march_dtype=dtype)
-    assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars) == 0
+    assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars, 0) == 0
     return march_kernel.finish(prepared, buf, dest, spin, refine_crossing=True)
 
 
@@ -354,3 +363,82 @@ def test_host_plane_reached_rounds_like_the_plain_march(host_lib, incl_deg, phi0
     zeros = np.zeros_like(r32)
     want = shell.reached(torch.from_numpy(r32), None, None, None).numpy()
     np.testing.assert_array_equal(host_reached(host_lib, shell, r32, zeros, zeros, zeros), want)
+
+
+def _refill_case(kind, dtype):
+    """(rays, spin, destination, march keywords) for the refill tests: the
+    caustic cases' batches, and the 0.1 lamppost grid with ThetaLimit."""
+    if kind != "theta":
+        return _caustic_case(kind, dtype)
+    rays = point_source(SOURCE, 0.0, SPIN, PointSourceGrid.from_steps(0.1, 0.2), device="cpu")
+    return rays, SPIN, ThetaLimit(), dict(r_max=1000.0)
+
+
+def _take(rays, idx):
+    return rays.replace(**{f.name: getattr(rays, f.name)[idx] for f in dataclasses.fields(rays)})
+
+
+def _host_buffers(lib, rays, spin, method, dtype, dest, kw, ctrl, steplim, max_iters, warps):
+    """The 21 marched buffers after the host build's march with ``warps``
+    emulated warps (0: ray after ray), at the given steplim and max_iters."""
+    _, _, buf, scalars = march_kernel.prepare(
+        rays, spin, method=method, dest=dest, steplim=steplim, ctrl=ctrl,
+        march_dtype=dtype, r_max=kw["r_max"], boundary=kw.get("boundary"))
+    scalars[10] = max_iters
+    assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars, warps) == 0
+    return buf
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["theta", "isco", "plane", "shell"])
+@pytest.mark.parametrize("method", ["euler", "rk4", "rk45"])
+def test_host_refill_schedule_matches_per_ray_march(host_lib, method, kind, dtype):
+    """The lane-refill schedule (rt_march_host with emulated warps sharing
+    one counter, 32 rays a take) gives every one of the 21 fields bit for
+    bit as the march ray after ray: 203 rays on 3 warps (lanes that take
+    several rays; n not a multiple of 32) and 13 on 2 (a warp with no ray
+    at all), with dead rays (steps -1),
+    finished ones and a stuck one (STEPLIM with positive steps, negated on
+    the way out) among them; cut by steplim, and by a max_iters below it
+    that leaves rays active — at 3 iterations, with the step caps opened
+    up, RK45 rays whose last trial was rejected, so a lane's step and FSAL
+    carry must not leak into the next ray it takes."""
+    _check_refill_schedule(host_lib, method, kind, dtype)
+
+
+def _check_refill_schedule(host_lib, method, kind, dtype):
+    rays, spin, dest, kw = _refill_case(kind, dtype)
+    rng = np.random.default_rng(7)
+    rays = _take(rays, torch.from_numpy(rng.permutation(rays.n_rays)[:203]))
+    k = torch.arange(rays.n_rays)
+    steps = torch.where(k % 9 == 4, -1, rays.steps)
+    steps = torch.where(k % 31 == 6, 5, steps)
+    status = torch.where(k % 11 == 3, 1, rays.status)
+    status = torch.where(k % 31 == 6, 8, status)
+    rays = rays.replace(steps=steps.to(torch.int32), status=status.to(torch.int32))
+    names = march_kernel.F_FIELDS + march_kernel.I_FIELDS + march_kernel.B_FIELDS
+    loose = StepControl(precision=1.0, theta_precision=1.0, max_tstep=0.0, max_phistep=0.0,
+                        min_step=1e-9)
+    for ctrl, steplim, max_iters in ((StepControl(), 300, 330), (StepControl(), 10_000, 250),
+                                     (loose, 10_000, 3)):
+        for n, warps in ((203, 3), (13, 2)):
+            sub = _take(rays, slice(n))
+            args = (host_lib, sub, spin, method, dtype, dest, kw, ctrl, steplim)
+            want = _host_buffers(*args, max_iters, 0)
+            got = _host_buffers(*args, max_iters, warps)
+            for f in names:
+                same = np.array_equal(got[f].numpy().view(np.uint8), want[f].numpy().view(np.uint8))
+                assert same, f"{f} (n {n}, {warps} warps, steplim {steplim}, max_iters {max_iters})"
+            if max_iters > steplim or n < 32 * warps:
+                continue
+            # rays of the first lanes the cut leaves active: their lanes take new rays
+            live = ((want["steps"] >= 0) & ((want["status"] & 0x4F) == 0))[:32 * warps]
+            if ctrl is not loose:
+                assert int(live.sum()) > 0
+            elif method == "rk45":
+                before = _host_buffers(*args, max_iters - 1, 0)
+                rejected = (before["steps"] == want["steps"]) & (before["dt"] != want["dt"])
+                assert int((live & rejected[:32 * warps]).sum()) > 0
+    dead = (rays.steps < 0).numpy()[:13]
+    np.testing.assert_array_equal(want["steps"].numpy()[dead], -1)
+    assert (want["steps"].numpy()[(k[:13] % 31 == 6).numpy()] == -5).all()
