@@ -8,8 +8,12 @@ script exits non-zero:
   0. device: name and power limit, TF32 off;
   1. build the march kernel from csrc/ with nvcc (ptxas registers, stack
      and spills of each kernel: the 24 grid-launch kernels and the
-     lane-refill one), and count the floating-point instructions of one rate
-     evaluation in the SASS of a probe (the bound's operations);
+     lane-refill one); beside it, in parallel, the same source as a cubin,
+     whose nvdisasm gives the least and the most that one full iteration
+     of each grid kernel's march loop issues, by pipe (loop_issue; the
+     least are the bound's instructions), and the
+     guarded trig of csrc/march.cuh checked bit for bit against the CUDA
+     math library on every float32 and 1e9 float64 samples (trig_check);
   2. parity: the kernel against the plain torch march on the card, rk4 and
      rk45, float32 and float64, on the golden 0.05 grid (5,040 rays);
   3. golden: apps.emissivity.compute on the card against the reference
@@ -79,9 +83,13 @@ card the plain march replays each compaction epoch's iteration as a CUDA
 graph (ops/integrate.py).
 The last two lines are the per-kernel JSON record and the device record.
 A record's ms is its main path's batch at the CLI's steplim under the
-schedule the launcher gives it; bound_ms the larger of its operations over
-the peak rate and its bytes over the memory rate; latency_bound_ms the
-longest ray's steps times one step's latency.
+schedule the launcher gives it; bound_ms the largest of its issue times
+(each pipe's instructions, and all of them, over the card's rates; see
+SASS_PIPES) and its bytes over the memory rate, bound_by "operations" or
+"bytes" (as every record of the line has them) and bound_pipe the binding
+one; issue_per_step the least that one full loop iteration issues by pipe,
+on which the bound stands, and issue_per_step_most the most (loop_issue);
+latency_bound_ms the longest ray's steps times one step's latency.
 """
 
 from __future__ import annotations
@@ -138,38 +146,131 @@ CAUSTIC_PARITY = (
     + [(m, "shell", "float64") for m in ("euler", "rk4", "rk45")]
 )
 SHELL = dict(r_shell=40.0, boundary=2.5)
-# the bound of a march: operations of one geodesic_rates evaluation
-# (csrc/march.cuh) by dtype, counted in phase 1 from the SASS of a probe
-# kernel (sass_rate_ops); evaluations per step; the card's peak rates
-# outside the tensor cores and its memory rate (H100 SXM data sheet)
-RATE_OPS = {}
-RATES_PER_STEP = {"euler": 1, "rk4": 4, "rk45": 6}
-PEAK_OPS = {"float32": 67e12, "float64": 34e12}
-HBM_BYTES_PER_S = 3.35e12
-RATES_PROBE = r"""
-#include "march.cuh"
-template <typename T>
-__global__ void rates_probe(const T* x, T* out, rt::Spin<T> s) {
-  const rt::Rates<T> o = rt::geodesic_rates(x[0], x[1], x[2], x[3], x[4], x[5], x[6], s);
-  out[0] = o.pt; out[1] = o.pr; out[2] = o.ptheta; out[3] = o.pphi;
-  out[4] = o.thetadot_sq; out[5] = o.rdot_sq; out[6] = o.sin_t; out[7] = o.inv_rhosq;
+# The bound of a march (march_bound) counts what one full iteration of the
+# kernel's march loop must issue, by pipe. Phase 1 reads it from nvdisasm
+# of csrc/march.cu built as a cubin with the march kernel's flags, grid
+# kernel by grid kernel (step_issue): the fewest instructions of any
+# straight path through the loop body that takes a whole step
+# (loop_issue). Each pipe's count times the steps of the unstuck rays,
+# over the pipe's lanes an SM x the SMs x the card's clocks.max.sm, is one
+# lower bound; all instructions over the 128 an SM issues a clock (4
+# schedulers, one warp instruction each) another; the bytes over the memory rate the last. Lanes an SM for
+# compute capability 9.0 (CUDA C++ Programming Guide, throughput of native
+# arithmetic instructions, results a clock an SM): FP32 add, multiply and
+# multiply-add 128; FP64 add, multiply, multiply-add 64 (the FP64 compares
+# and min/max issue to the same pipe); MUFU (reciprocal, reciprocal square
+# root and the other special functions) 16; 32-bit integer add, multiply,
+# shift, compare, min/max and logic 64 (float compares, min/max and selects
+# go to the same ALU); type conversions 16. Control, memory, uniform-
+# datapath and barrier instructions count only towards issue.
+SASS_PIPES = {
+    "fp32": ("FADD", "FMUL", "FFMA", "FADD32I", "FMUL32I", "FFMA32I", "FSWZADD", "HFMA2",
+             "HADD2", "HMUL2"),
+    "fp64": ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "DSET"),
+    "mufu": ("MUFU",),
+    "int": ("IADD3", "IADD", "IMAD", "IMUL", "IMNMX", "ISETP", "ISET", "LOP3", "LOP", "SHF",
+            "SHL", "SHR", "SEL", "FSEL", "FSETP", "FSET", "FMNMX", "FCHK", "PRMT", "LEA", "MOV",
+            "IABS", "P2R", "R2P", "PLOP3", "BMSK", "SGXT", "IDP", "BREV", "VIADD", "VIMNMX",
+            "IADD32I", "LOP32I", "IMAD32I", "MOV32I", "ISCADD", "CS2R"),
+    "conv": ("F2I", "I2F", "F2F", "I2I", "F2FP", "FRND", "I2FP", "F2IP", "POPC", "FLO"),
 }
-template <typename T> __global__ void sin_probe(const T* x, T* out) { out[0] = rt::m_sin(x[0]); }
-template <typename T> __global__ void cos_probe(const T* x, T* out) { out[0] = rt::m_cos(x[0]); }
-template <typename T> __global__ void sqrt_probe(const T* x, T* out) { out[0] = rt::m_sqrt(x[0]); }
-template <typename T> __global__ void div_probe(const T* x, T* out) { out[0] = x[0] / x[1]; }
-#define PROBES(T)                                                          \
-  template __global__ void rates_probe<T>(const T*, T*, rt::Spin<T>);      \
-  template __global__ void sin_probe<T>(const T*, T*);                     \
-  template __global__ void cos_probe<T>(const T*, T*);                     \
-  template __global__ void sqrt_probe<T>(const T*, T*);                    \
-  template __global__ void div_probe<T>(const T*, T*);
-PROBES(float)
-PROBES(double)
+PIPE_OF = {op: pipe for pipe, ops in SASS_PIPES.items() for op in ops}
+PIPE_LANES = {"fp32": 128, "fp64": 64, "mufu": 16, "int": 64, "conv": 16}
+ISSUE_LANES = 128
+PIPES = tuple(PIPE_LANES) + ("total",)
+# what phase 1 counts and reads: (method, destination kind, dtype name) ->
+# instructions of one loop iteration by pipe; the card's SMs and clock
+STEP_ISSUE = {}
+CARD = {}
+HBM_BYTES_PER_S = 3.35e12
+KINDS = ("theta", "isco", "plane", "shell")
+# CUDA math library subroutines that only its slow paths call, and the
+# guarded trig's out-of-line branch (csrc/march.cuh, sincos_far, cos_far)
+SLOW_CALLEE = r"slowpath|mediumpath|_full|_far"
+# The guarded trig of csrc/march.cuh (m_sincos, m_cos) against the CUDA
+# math library's sinf/cosf and sin/cos, built with the march kernel's flags
+# and compared bit for bit: every float32 bit pattern, and for float64
+# n seeded samples (a quarter each uniform on [-8, 8], log-uniform in
+# magnitude from 2^-40 to 2^40, raw 64-bit patterns, and within 2^20 ulps
+# of a multiple of pi/4 up to 1e3) plus every double within WIDTH ulps of
+# k pi/4 for |k| <= 1273 (|k pi/4| <= 1e3).
+TRIG_CHECK = r"""
+#include "march.cuh"
+__device__ unsigned long long mismatches[4];
+__device__ __forceinline__ bool same(float a, float b) { return __float_as_uint(a) == __float_as_uint(b); }
+__device__ __forceinline__ bool same(double a, double b) {
+  return __double_as_longlong(a) == __double_as_longlong(b);
+}
+__device__ __forceinline__ void check(float x) {
+  const rt::SinCos<float> g = rt::m_sincos(x);
+  const float s = sinf(x), c = cosf(x);
+  if (!same(g.s, s) || !same(g.c, c)) atomicAdd(&mismatches[0], 1ull);
+  if (!same(rt::m_cos(x), c)) atomicAdd(&mismatches[1], 1ull);
+}
+__device__ __forceinline__ void check(double x) {
+  const rt::SinCos<double> g = rt::m_sincos(x);
+  const double s = sin(x), c = cos(x);
+  if (!same(g.s, s) || !same(g.c, c)) atomicAdd(&mismatches[2], 1ull);
+  if (!same(rt::m_cos(x), c)) atomicAdd(&mismatches[3], 1ull);
+}
+__device__ __forceinline__ unsigned long long mix(unsigned long long z) {  // splitmix64
+  z += 0x9e3779b97f4a7c15ull;
+  z = (z ^ (z >> 30)) * 0xbf58476d1ce4e5b9ull;
+  z = (z ^ (z >> 27)) * 0x94d049bb133111ebull;
+  return z ^ (z >> 31);
+}
+__device__ __forceinline__ double nudge(double x, long long ulps) {
+  return __longlong_as_double(__double_as_longlong(x) + ulps);  // x != 0: same sign
+}
+__global__ void check_f32() {
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+       i < (1ull << 32); i += stride)
+    check(__uint_as_float((unsigned)i));
+}
+__global__ void check_f64(unsigned long long n, unsigned long long seed, long long width) {
+  const unsigned long long stride = (unsigned long long)gridDim.x * blockDim.x;
+  const double quarter_pi = 0.78539816339744830962;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const unsigned long long u = mix(seed ^ mix(i));
+    const double unit = (u >> 11) * 0x1.0p-53;
+    const double sign = (u & 1) ? -1.0 : 1.0;
+    double x;
+    switch (i & 3) {
+      case 0: x = 16.0 * unit - 8.0; break;
+      case 1: x = sign * exp2(80.0 * unit - 40.0); break;
+      case 2: x = __longlong_as_double((long long)u); break;
+      default: {
+        const long long k = (long long)((u >> 8) % 2547) - 1273;
+        x = k == 0 ? sign * unit : nudge(k * quarter_pi, (long long)((u >> 40) % 2097153) - 1048576);
+      }
+    }
+    check(x);
+  }
+  // every double within `width` ulps of k pi/4, |k| <= 1273
+  const unsigned long long sweep = 2547ull * (2 * width + 1);
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x;
+       i < sweep; i += stride) {
+    const long long k = (long long)(i / (2 * width + 1)) - 1273;
+    const long long d = (long long)(i % (2 * width + 1)) - width;
+    check(k == 0 ? d * 0x1.0p-1074 : nudge(k * quarter_pi, d));
+  }
+}
+extern "C" int trig_check(unsigned long long n, unsigned long long seed, long long width,
+                          unsigned long long* out) {
+  const unsigned long long zero[4] = {0, 0, 0, 0};
+  cudaError_t err = cudaMemcpyToSymbol(mismatches, zero, sizeof(zero));
+  if (err != cudaSuccess) return (int)err;
+  check_f32<<<132 * 16, 256>>>();
+  check_f64<<<132 * 16, 256>>>(n, seed, width);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) err = cudaMemcpyFromSymbol(out, mismatches, sizeof(zero));
+  return (int)err;
+}
 """
-# floating-point instructions of each dtype in SASS
-SASS_FP = {"float32": ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX", "FSEL", "FCHK", "MUFU"),
-           "float64": ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU")}
+TRIG_SAMPLES, TRIG_SEED, TRIG_WIDTH = 1_000_000_000, 5, 4096
 
 class Phase:
     def __init__(self, name):
@@ -184,12 +285,17 @@ class Phase:
             print(f"[phase] {self.name}: ok in {time.perf_counter() - self.t0:.2f} s", flush=True)
 
 
-def smi_line() -> str:
+def smi_query(fields: str, units: bool = False) -> str:
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}",
+         "--format=csv,noheader" + ("" if units else ",nounits")],
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def smi_line() -> str:
+    return smi_query("name,power.limit", units=True)
 
 
 def check(cond, what):
@@ -275,57 +381,316 @@ def image_golden_check(tag, out, path, n, count_tol, tols, min_pixels):
         check(devs[f] < tol, f"{tag}: {f} median dev {devs[f]:.3e} >= {tol}")
 
 
-def sass_rate_ops(tmp):
-    """Floating-point instructions of one geodesic_rates evaluation in each
-    dtype, read from cuobjdump -sass of a probe kernel built from
-    csrc/march.cuh with the march kernel's flags: the FP instructions of the
-    rates probe, less those of probes of its one sin, one cos, two square
-    roots and one divide, plus one for each of these five. A lower bound:
-    each sin counts as one operation, integer and select work not at all."""
+def sass_kernels(dis):
+    """Kernel name -> (instructions, labels) from nvdisasm output: each
+    kernel's .text section with its subroutines; an instruction is
+    (address, predicated, opcode, operands), a label maps to the index of
+    the instruction that follows it."""
     import re
+
+    insn = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+    out, cur, pending = {}, None, []
+    for line in dis.splitlines():
+        m = re.match(r"^\.text\.(\S+):\s*$", line)
+        if m:
+            cur, pending = out.setdefault(m.group(1), ([], {})), []
+            continue
+        if cur is None:
+            continue
+        if re.match(r"^\.(?!L_)\S+", line):
+            cur = None
+            continue
+        m = re.match(r"^(\S+):\s*$", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = insn.search(line)
+        if m:
+            for label in pending:
+                cur[1][label] = len(cur[0])
+            pending = []
+            a, pred, op, args = m.groups()
+            cur[0].append((int(a, 16), bool(pred), op, args.strip()))
+    return out
+
+
+def loop_issue(instrs, labels):
+    """Instructions by pipe that one full iteration of a kernel's march
+    loop issues on its straight path: {"least": counts, "most": counts}.
+    A loop's straight paths run from its header to a latch through the
+    blocks that are not slow: a block that calls a slow path of the CUDA
+    math library (SLOW_CALLEE), touches local memory, or lies on a loop
+    inside the march loop (the Payne-Hanek reduction) is slow. A full
+    iteration evaluates every rate of its method, each with two square
+    roots, so the full paths are the straight ones that take the most
+    MUFU.RSQ (a step that ends after its first rates takes fewer).
+    "least" holds, pipe by pipe, the fewest instructions of any full path:
+    what every full iteration issues, whichever branches it takes. "most"
+    holds the counts of the full path that issues the most. A subroutine
+    that a block calls (double pow's) adds its own least or most over its
+    straight paths to RET. The march loop is the loop whose full paths
+    issue the most (the lane-refill kernel's loop over rays holds it)."""
+    import re
+    from collections import Counter
+
+    def target(args):
+        return labels[re.search(r"`\(([^)]+)\)", args).group(1)]
+
+    leaders = {0}
+    for i, (_, _, op, args) in enumerate(instrs):
+        base = op.split(".")[0]
+        if base in ("BRA", "CALL"):
+            leaders.add(target(args))
+        if base in ("BRA", "EXIT", "RET", "CALL"):
+            leaders.add(i + 1)
+    starts = sorted(i for i in leaders if i < len(instrs))
+    blocks = list(zip(starts, starts[1:] + [len(instrs)]))
+    block_of = {b: k for k, (b, _) in enumerate(blocks)}
+    succ, slow, callee, ret, size = [], [], [], [], []
+    for k, (b, e) in enumerate(blocks):
+        _, pred, op, args = instrs[e - 1]
+        base = op.split(".")[0]
+        ops = [instrs[i][2].split(".")[0] for i in range(b, e)]
+        size.append(e - b)
+        slow_call = base == "CALL" and re.search(SLOW_CALLEE, args) is not None
+        slow.append(slow_call or "LDL" in ops or "STL" in ops)
+        callee.append(block_of[target(args)] if base == "CALL" and not slow_call else None)
+        ret.append(base == "RET")
+        nxt = [k + 1] if k + 1 < len(blocks) else []
+        if base == "BRA":
+            cond = pred or re.match(r"!?U?P[T0-9]", args) is not None
+            succ.append([block_of[target(args)]] + (nxt if cond else []))
+        elif base in ("EXIT", "RET"):
+            succ.append(nxt if pred else [])
+        else:
+            succ.append(nxt)
+
+    def back_edges(entry, allowed):
+        """Edges u -> h found by a DFS from entry over `allowed` whose head is on the stack."""
+        edges, state, stack = [], {entry: 1}, [(entry, iter(succ[entry]))]
+        while stack:
+            k, it = stack[-1]
+            for t in it:
+                if t not in allowed:
+                    continue
+                if state.get(t) == 1:
+                    edges.append((k, t))
+                elif t not in state:
+                    state[t] = 1
+                    stack.append((t, iter(succ[t])))
+                    break
+            else:
+                state[k] = 2
+                stack.pop()
+        return edges
+
+    def natural_loop(header, latches):
+        body, todo = {header}, list(latches)
+        pred = {}
+        for k, ts in enumerate(succ):
+            for t in ts:
+                pred.setdefault(t, []).append(k)
+        while todo:
+            k = todo.pop()
+            if k not in body:
+                body.add(k)
+                todo.extend(pred.get(k, []))
+        return body
+
+    def least_of(a, b):
+        return Counter({p: min(a[p], b[p]) for p in set(a) | set(b)})
+
+    def paths(entry, sinks, allowed, loop):
+        """(least, most) over the paths from entry to a sink through the
+        allowed blocks (a DAG: callers remove the cycles), None if there is
+        none; for a loop (loop=True) only over its full paths: the most square roots
+        (MUFU.RSQ) and more divides (MUFU.RCP) than half as many, so a
+        divide beyond the rates' one each, the step size's. Square roots
+        and divides are counted in the loop's own blocks."""
+        order, state, stack = [], {entry: 1}, [(entry, iter(succ[entry]))]
+        while stack:
+            k, it = stack[-1]
+            for t in it:
+                if t in allowed and t not in state:
+                    state[t] = 1
+                    stack.append((t, iter(succ[t])))
+                    break
+            else:
+                state[k] = 2
+                order.append(k)
+                stack.pop()
+        own = {}
+        for k in state:
+            c = Counter()
+            for i in range(*blocks[k]):
+                c[PIPE_OF.get(instrs[i][2].split(".")[0], "other")] += 1
+            c["total"] = size[k]
+            ops = [instrs[i][2] for i in range(*blocks[k])]
+            marks = (sum(op.startswith("MUFU.RSQ") for op in ops),
+                     sum(op.startswith("MUFU.RCP") for op in ops))
+            lo, hi = c, c
+            if callee[k] is not None:
+                s_lo, s_hi = subroutine(callee[k])
+                lo, hi = c + s_lo, c + s_hi
+            own[k] = (lo, hi, marks)
+        # best[k][(roots, divides)]: (least, most) over the paths from entry to k
+        best = {entry: {own[entry][2]: own[entry][:2]}}
+        for k in reversed(order):
+            for t in succ[k] if k in best else ():
+                if t not in state or t == entry:
+                    continue
+                lo_t, hi_t, (r_t, d_t) = own[t]
+                at = best.setdefault(t, {})
+                for (r, d), (lo, hi) in best[k].items():
+                    lo, hi, m = lo + lo_t, hi + hi_t, (r + r_t, d + d_t)
+                    if m in at:
+                        lo0, hi0 = at[m]
+                        lo, hi = least_of(lo, lo0), max(hi, hi0, key=lambda c: c["total"])
+                    at[m] = (lo, hi)
+        ends = [(m, lohi) for k in best if k in sinks for m, lohi in best[k].items()]
+        if loop:
+            roots = max((r for (r, _), _ in ends), default=0)
+            ends = [(m, lohi) for m, lohi in ends if m[0] == roots and 2 * m[1] > roots]
+        if not ends:
+            return None
+        least = ends[0][1][0]
+        for _, (lo, _) in ends[1:]:
+            least = least_of(least, lo)
+        return least, max((hi for _, (_, hi) in ends), key=lambda c: c["total"])
+
+    def acyclic(region, entry):
+        """The region's blocks that are not slow and lie on no loop of the
+        region other than the one through `entry`."""
+        keep = {k for k in region if not slow[k]}
+        inner = set()
+        for u, h in back_edges(entry, keep):
+            if h != entry:
+                inner |= natural_loop(h, [u]) & keep
+        return keep - inner
+
+    def subroutine(entry):
+        blocks_from = set()
+        todo = [entry]
+        while todo:
+            k = todo.pop()
+            if k not in blocks_from:
+                blocks_from.add(k)
+                todo.extend(succ[k])  # a RET that is predicated falls through
+        allowed = acyclic(blocks_from, entry)
+        return paths(entry, {k for k in allowed if ret[k]}, allowed, False)
+
+    loops = {}
+    for u, h in back_edges(0, set(range(len(blocks)))):
+        loops.setdefault(h, []).append(u)
+    found = []
+    for header, latches in loops.items():
+        allowed = acyclic(natural_loop(header, latches), header)
+        if header in allowed and set(latches) & allowed:
+            found.append(paths(header, set(latches) & allowed, allowed, True))
+    found = [f for f in found if f is not None]
+    if not found:
+        raise RuntimeError("no full straight path through a loop of the kernel")
+    least, most = max(found, key=lambda f: f[1]["total"])
+    return {"least": least, "most": most}
+
+
+def start_probe_builds(tmp):
+    """nvcc, started at once, of what phase 1 builds beside the library:
+    csrc/march.cu as a cubin with the march kernel's flags (for step_issue)
+    and the guarded-trig check (TRIG_CHECK, for trig_check)."""
+    from raytrace_tpu_torch.ops import march_kernel
+
+    lib_only = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+    cubin = march_kernel.nvcc_command(march_kernel.CSRC / "march.cu", Path(tmp) / "march.cubin")
+    src = Path(tmp) / "trig_check.cu"
+    src.write_text(TRIG_CHECK)
+    check_lib = march_kernel.nvcc_command(src, Path(tmp) / "libtrig_check.so")
+    cmds = {"march cubin": [c for c in cubin if c not in lib_only] + ["-cubin"],
+            "trig check": check_lib[:1] + ["-I", str(march_kernel.CSRC)] + check_lib[1:]}
+    return {name: subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for name, cmd in cmds.items()}
+
+
+def step_issue(tmp):
+    """issue_by_kernel of the march cubin that start_probe_builds made,
+    disassembled with nvdisasm."""
     import shutil
 
     from raytrace_tpu_torch.ops import march_kernel
 
-    src, cubin = Path(tmp) / "rates_probe.cu", Path(tmp) / "rates_probe.cubin"
-    src.write_text(RATES_PROBE)
-    nvcc = march_kernel._nvcc()
-    subprocess.run([nvcc, "-cubin", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-                    "-O3", "--fmad=false", "-I", str(march_kernel.CSRC), "-o", str(cubin),
-                    str(src)], check=True, capture_output=True, text=True)
-    cuobjdump = shutil.which("cuobjdump") or str(Path(nvcc).parent / "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True,
-                          text=True).stdout
-    counts = {}
-    for name, body in re.findall(r"Function : (\S+)(.*?)(?=Function : |\Z)", sass, re.S):
-        probe = re.match(r"_Z\d+(\w+)_probeI([fd])E", name)
-        dtype = {"f": "float32", "d": "float64"}[probe.group(2)]
-        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", body)
-        counts[dtype, probe.group(1)] = sum(op in SASS_FP[dtype] for op in ops)
-    out = {}
-    for dtype in SASS_FP:
-        c = {k: counts[dtype, k] for k in ("rates", "sin", "cos", "sqrt", "div")}
-        out[dtype] = c["rates"] - c["sin"] - c["cos"] - 2 * c["sqrt"] - c["div"] + 5
-        print(f"sass {dtype}: FP instructions rates {c['rates']}, sin {c['sin']}, cos {c['cos']}, "
-              f"sqrt {c['sqrt']}, divide {c['div']} -> {out[dtype]} operations an evaluation")
-        check(out[dtype] > 0, f"rate-evaluation count {out[dtype]} from SASS")
+    nvdisasm = shutil.which("nvdisasm") or str(Path(march_kernel._nvcc()).parent / "nvdisasm")
+    dis = subprocess.run([nvdisasm, str(Path(tmp) / "march.cubin")], check=True,
+                         capture_output=True, text=True).stdout
+    out = issue_by_kernel(dis)
+    check(len(out) == 24, f"{len(out)} grid kernels in the SASS, 24 expected")
     return out
 
 
-def march_bound(out, method, march_dtype):
-    """(bound_ms, bound_by) of one march: the larger of its operations over
-    the peak rate of its dtype and its bytes over the memory rate. The
-    operations are RATE_OPS x RATES_PER_STEP x the steps of the rays that
-    ended without being stuck (steps > 0); the bytes are the 21 fields read
-    once and the 17 the kernel writes (11 floats, 4 counters, 2 gates)
-    written once per ray."""
+def issue_by_kernel(dis):
+    """loop_issue of each grid kernel (march_kernel<T, METHOD, DEST>) in
+    nvdisasm output, by (method, destination kind, dtype name)."""
+    import re
+
+    methods = {1: "rk4", 2: "rk45", 3: "euler"}
+    out = {}
+    for name, (instrs, labels) in sass_kernels(dis).items():
+        m = re.search(r"12march_kernelI([fd])Li(\d)ELi(\d)E", name)
+        if m:
+            dtype = "float32" if m.group(1) == "f" else "float64"
+            out[methods[int(m.group(2))], KINDS[int(m.group(3))], dtype] = loop_issue(instrs, labels)
+    return out
+
+
+def trig_check(tmp):
+    """TRIG_CHECK on the card: the guarded trig against the CUDA math
+    library's, bit for bit, on every float32 and TRIG_SAMPLES float64
+    samples plus the pi/4 sweep; fails on any mismatch."""
+    import ctypes
+
+    lib = ctypes.CDLL(str(Path(tmp) / "libtrig_check.so"))
+    lib.trig_check.argtypes = [ctypes.c_ulonglong, ctypes.c_ulonglong, ctypes.c_longlong,
+                               ctypes.c_void_p]
+    lib.trig_check.restype = ctypes.c_int
+    out = (ctypes.c_ulonglong * 4)()
+    t0 = time.perf_counter()
+    err = lib.trig_check(TRIG_SAMPLES, TRIG_SEED, TRIG_WIDTH, out)
+    check(err == 0, f"trig check failed with CUDA error {err}")
+    print(f"trig check ({time.perf_counter() - t0:.2f} s): m_sincos / m_cos against sinf, cosf "
+          f"on all 2^32 float32 patterns: {out[0]} / {out[1]} differ; against sin, cos on "
+          f"{TRIG_SAMPLES} seeded float64 samples and the {2547 * (2 * TRIG_WIDTH + 1)} doubles "
+          f"within {TRIG_WIDTH} ulps of k pi/4 (|k| <= 1273): {out[2]} / {out[3]} differ")
+    check(not any(out), "the guarded trig differs from the CUDA math library's")
+
+
+def issue_line(c):
+    return ", ".join(f"{p} {c[p]}" for p in PIPES)
+
+
+def march_bound(out, method, dest, march_dtype):
+    """(bound_ms, pipe) of one march: the largest of each pipe's issue time,
+    the issue time of all its instructions, and its bytes over the memory
+    rate (see SASS_PIPES). The instructions are the least that one full
+    iteration of the instantiation issues (STEP_ISSUE, loop_issue) times
+    the counted steps of the rays that ended without being stuck (steps >
+    0). A rejected RK45 trial is a full iteration that counts no step, so
+    it adds to the time and not to the bound; a step that a turning point
+    skips counts as one and issues less (its first rates only, a few a
+    ray). The bytes are the 21 fields read once and the 17 the kernel
+    writes (11 floats, 4 counters, 2 gates) written once per ray. pipe is
+    the binding one: fp32, fp64, mufu, int, conv, issue or bytes."""
+    from raytrace_tpu_torch.ops import march_kernel
+
     name = str(march_dtype).replace("torch.", "")
+    kind = dest if isinstance(dest, str) else KINDS[march_kernel._dest_args(dest)[0]]
+    c = STEP_ISSUE[method, kind, name]["least"]
     size = 4 if name == "float32" else 8
-    steps = out.steps
-    ops = RATE_OPS[name] * RATES_PER_STEP[method] * int(steps[steps > 0].sum())
-    nbytes = out.n_rays * ((15 * size + 18) + (11 * size + 18))
-    t_ops, t_bytes = ops / PEAK_OPS[name], nbytes / HBM_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+    steps = int(out.steps[out.steps > 0].sum())
+    clocks = CARD["sms"] * CARD["clock_hz"]
+    times = {p: c[p] * steps / (PIPE_LANES[p] * clocks) for p in PIPE_LANES}
+    times["issue"] = c["total"] * steps / (ISSUE_LANES * clocks)
+    times["bytes"] = out.n_rays * ((15 * size + 18) + (11 * size + 18)) / HBM_BYTES_PER_S
+    pipe = max(times, key=times.get)
+    return times[pipe] * 1e3, pipe
 
 
 def parity(a, b, live, dtype, torch):
@@ -589,6 +954,7 @@ def time_schedules(path, variant, rays, spin, kw, method, dtype, torch):
 
     dname = str(dtype).replace("torch.", "")
     dest = kw.get("dest") or ThetaLimit()
+    kind = KINDS[march_kernel._dest_args(dest)[0]]
     own = march_kernel.schedule_of(method, dest, dtype)
     steplim = kernel_steplim(method)
     kernel_kw = dict(kw, method=method, steplim=steplim, march_dtype=dtype)
@@ -607,7 +973,7 @@ def time_schedules(path, variant, rays, spin, kw, method, dtype, torch):
     resident = info[own]["blocks_per_sm"] * info[own]["sms"] * 128
     lanes = lane_stats(grid_out.steps.cpu().numpy(), resident)
     lat_us, longest = step_latency_us(rays, spin, grid_out, own, kernel_kw, torch)
-    t_bound, t_by = march_bound(grid_out, method, dtype)
+    t_bound, t_by = march_bound(grid_out, method, dest, dtype)
     lat_bound = None if lat_us is None else longest * lat_us / 1e3
     print(f"schedules {path} {variant} ({rays.n_rays} rays, {dname}, steplim {steplim}): "
           f"steps median {lanes['median_steps']:.0f} max {lanes['max_steps']}; grid launch "
@@ -623,9 +989,11 @@ def time_schedules(path, variant, rays, spin, kw, method, dtype, torch):
           + "; lone-ray step latency "
           + (f"{lat_us:.4f} us x {longest} steps = {lat_bound:.4f} ms" if lat_us else
              f"not resolved over the longest ray's {longest} steps")
-          + f"; throughput bound {t_bound:.4f} ms ({t_by})")
+          + f"; issue bound {t_bound:.4f} ms ({t_by}; one full loop iteration at least "
+          f"{issue_line(STEP_ISSUE[method, kind, dname]['least'])})")
     return dict(ms=best[own], schedule=own, grid_ms=times["grid"],
-                refill_ms=times.get("refill"), bound_ms=t_bound, bound_by=t_by,
+                refill_ms=times.get("refill"), bound_ms=t_bound, bound_pipe=t_by,
+                issue=STEP_ISSUE[method, kind, dname], info=info[own],
                 latency_bound_ms=lat_bound, step_latency_us=lat_us, steplim=steplim,
                 n_rays=rays.n_rays)
 
@@ -693,13 +1061,31 @@ def main() -> int:
 
     with Phase("1 build"):
         t0 = time.perf_counter()
-        log = march_kernel.build(force=True)
-        march_kernel.load()
-        print(f"build: nvcc sm_90a in {time.perf_counter() - t0:.1f} s")
-        for line in ptxas_lines(log):
-            print(f"ptxas: {line}")
         with tempfile.TemporaryDirectory() as tmp:
-            RATE_OPS.update(sass_rate_ops(tmp))
+            probes = start_probe_builds(tmp)  # beside the library's own nvcc
+            try:
+                log = march_kernel.build(force=True)
+                march_kernel.load()
+                print(f"build: nvcc sm_90a in {time.perf_counter() - t0:.1f} s")
+                for line in ptxas_lines(log):
+                    print(f"ptxas: {line}")
+                for name, proc in probes.items():
+                    out, _ = proc.communicate()
+                    check(proc.returncode == 0, f"nvcc of the {name} failed:\n{out[-3000:]}")
+            finally:
+                for proc in probes.values():
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+            print(f"probes built in {time.perf_counter() - t0:.1f} s")
+            STEP_ISSUE.update(step_issue(tmp))
+            trig_check(tmp)
+        CARD.update(sms=torch.cuda.get_device_properties(0).multi_processor_count,
+                    clock_hz=1e6 * float(smi_query("clocks.max.sm")))
+        print(f"card: {CARD['sms']} SMs, clocks.max.sm {CARD['clock_hz'] / 1e6:.0f} MHz")
+        for (method, kind, dname), c in sorted(STEP_ISSUE.items()):
+            print(f"issue {method} x {kind} {dname}: one full loop iteration, least "
+                  f"{issue_line(c['least'])}; most {issue_line(c['most'])}")
 
     with Phase("2 parity"):
         golden_grid = PointSourceGrid.from_steps(0.05, 0.05)
@@ -800,7 +1186,7 @@ def main() -> int:
                 small, SPIN, method=method, steplim=steplim), torch)
             p_ms, _ = cuda_ms(lambda: trace(small, SPIN, method=method, steplim=steplim), torch,
                               repeats=1, warmup=False)
-            b_ms, b_by = march_bound(out, method, torch.float32)
+            b_ms, b_by = march_bound(out, method, "theta", torch.float32)
             print(f"kernel vs plain {method} f32 (5,040 rays, steplim {steplim}): "
                   f"kernel {k_ms:.3f} ms (best of 3), plain {p_ms:.3f} ms (one run), "
                   f"ratio {p_ms / k_ms:.1f}x, bound {b_ms:.4f} ms ({b_by})")
@@ -895,7 +1281,7 @@ def main() -> int:
             kw = dict(method=method, dest=image_dest(kind, 20.0), steplim=3000, r_max=550.0)
             k_ms, out = cuda_ms(lambda: march_kernel.trace_kernel(rays, -SPIN, **kw), torch)
             p_ms = image_plain_ms[method, kind]  # the plain march (seconds a run) of phase 6
-            b_ms, b_by = march_bound(out, method, torch.float32)
+            b_ms, b_by = march_bound(out, method, kind, torch.float32)
             print(f"kernel vs plain {method}/{kind} f32 (82 x 82 image-plane rays, steplim 3000): "
                   f"kernel {k_ms:.3f} ms (best of 3), plain {p_ms:.3f} ms (one run), "
                   f"ratio {p_ms / k_ms:.1f}x, bound {b_ms:.4f} ms ({b_by})")
@@ -911,7 +1297,7 @@ def main() -> int:
                                                                 **kw), torch)
             p_ms, b = cuda_ms(lambda: trace(rays, spin, **kw), torch, repeats=1, warmup=False)
             p = parity(a, b, (rays.steps == 0).cpu().numpy(), dtype, torch)
-            b_ms, b_by = march_bound(a, method, dtype)
+            b_ms, b_by = march_bound(a, method, kind, dtype)
             tag = f"{method}_{kind}_{dname.replace('float', 'f')}"
             print(parity_line(tag, p) + f" | {rays.n_rays} rays, kernel {k_ms:.3f} ms (best of 3), "
                   f"plain {p_ms:.1f} ms (one run), ratio {p_ms / k_ms:.0f}x, "
@@ -1060,7 +1446,13 @@ def main() -> int:
             "ms": t["ms"],
             "plain_ms": plain_ms,
             "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
+            "bound_by": "bytes" if t["bound_pipe"] == "bytes" else "operations",
+            "bound_pipe": t["bound_pipe"],
+            "issue_per_step": {p: t["issue"]["least"].get(p, 0) for p in PIPES},
+            "issue_per_step_most": {p: t["issue"]["most"].get(p, 0) for p in PIPES},
+            "registers": t["info"]["registers"],
+            "local_bytes": t["info"]["local_bytes"],
+            "blocks_per_sm": t["info"]["blocks_per_sm"],
             "library_ms": None,
             "schedule": t["schedule"],
             "grid_ms": t["grid_ms"],

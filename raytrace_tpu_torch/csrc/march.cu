@@ -19,14 +19,20 @@
 // What bounds it on this card: not memory — each ray moves about 170 bytes
 // in and out against hundreds to thousands of steps of 1 (Euler), 4 (RK4)
 // or 6 (DOPRI5, with the FSAL carry) rate evaluations, each with a sin, a
-// cos, two square roots and a divide. Four things do:
-//  - the dependent scalar chain of one step: precise double sin, cos, sqrt
-//    and divide are software sequences on the FP64 pipe, pow(x, 0.2) runs
-//    once a DOPRI5 step, and built --fmad=false every a*b+c is two
-//    dependent instructions; a warp waits on that chain unless other warps
-//    hide it, so
-//  - occupancy: the f64 RK45 instantiations take 124-128 registers a
-//    thread, 4 blocks of 128 threads (16 warps, 25%) an SM;
+// cos, two square roots and a divide. What a step issues does. Built
+// --fmad=false, every a*b+c is two instructions, and the precise divide,
+// square root, sin and cos are sequences of tens of them; chip_smoke.py
+// (phase 1) counts, from each kernel's SASS and by pipe, the least that
+// one full iteration of its loop issues, whichever branches it takes. A
+// float32 RK4 iteration issues at least ~650 instructions (~740 on its
+// longest path), ~370 of them FP32: the kernel is bound by issue (four
+// warp instructions a clock an SM), not by the FP32 pipe. A float64 RK45
+// iteration issues at least ~1,630 (~1,920), ~880 of them on the FP64
+// pipe (64 lanes an SM, half of the issue rate), which binds it a little
+// before issue does. Beside that bound:
+//  - occupancy: the f64 RK45 instantiations take 122-128 registers a
+//    thread, 4 blocks of 128 threads (16 warps, 25%) an SM, enough to keep
+//    those pipes fed on the throughput-bound batches;
 //  - lane, block and wave tails: a warp runs until its slowest lane ends
 //    (step counts of one batch spread from hundreds to ~10^4), a block
 //    until its slowest warp does, and the last wave of a one-thread-per-ray
@@ -34,34 +40,38 @@
 //  - a stuck photon-sphere ray runs to steplim: its dependent steps take at
 //    least its step count times the latency of one step.
 //
-// What the design does about them. The lane-refill schedule
-// (march_refill_kernel) launches only as many blocks as are resident at
-// once (SM count x the occupancy of the kernel) and keeps them: a warp
-// takes 32 consecutive ray indices from a global counter with one
-// atomicAdd, marches them, and takes the next 32 once all its lanes are
-// done. That removes the block and wave tails (a block of the grid launch
-// holds its SM slot until its slowest warp ends, and the last wave leaves
-// SMs empty), not the lane tail inside a warp. Refilling single lanes as
-// they free up, with a ballot of the idle lanes and one atomicAdd for all
-// of them, was measured too (at 1, 4, 8, 16 and 32 idle lanes, and with
-// warps that stop refilling while a lane's ray runs long): each pass of
-// that loop costs a ballot and leaves the ray's steps divergent from its
-// neighbours' loads, and every variant was slower than whole warps on the
-// float64 RK45 discplane batch. The RK45 lane keeps no copy of what the
-// FSAL carry holds (march.cuh, Lane): 124 registers for the f64 grid
-// kernel, 128 before; the refill kernel is built for the grid's 4 blocks
-// an SM. On an H100 (PERF.md, chip_smoke.py phase 13) the refill schedule
-// takes ~5% off the float64 RK45 discplane march, which no ray holds past
-// ~10^4 steps, so the launcher (ops/march_kernel.py) gives it that kernel
+// What the design does about them. The step issues less for the same bits
+// (march.cuh): sin and cos of an angle come from one sincos call under a
+// guard that lets the compiler drop the math library's slow range
+// reduction from the step (its out-of-line branch calls the same
+// functions); a floor against a constant takes one compare (FMNMX.NAN in
+// float32); the step reads its constants from the launch parameters,
+// where float64 would build each 64-bit literal with two moves. Together
+// that is 14% fewer instructions a full iteration for float32 RK4 and 5%
+// fewer FP64 instructions for float64 RK45, bitwise the same results, and
+// 4-19% off every main-path row of the kernel table on an H100 (PERF.md). The lane-refill
+// schedule (march_refill_kernel) launches only as many blocks as are
+// resident at once (SM count x the occupancy of the kernel) and keeps
+// them: a warp takes 32 consecutive ray indices from a global counter with
+// one atomicAdd, marches them, and takes the next 32 once all its lanes
+// are done. That removes the block and wave tails, not the lane tail
+// inside a warp. Refilling single lanes as they free up was slower (a
+// ballot a pass, divergent loads). On an H100 the refill schedule takes
+// ~5% off the float64 RK45 discplane march, which no ray holds past ~10^4
+// steps, so the launcher (ops/march_kernel.py) gives it that kernel
 // (refilled() below) and the grid launch (one thread per ray, ceil(n /
-// 128) blocks) to the rest. Where one stuck ray sets the time (the f64
-// RK45 plane batch) every refill variant tried was slower than the grid
-// launch: the persistent grid keeps the ray's SM full until the counter
-// runs dry, where the grid launch's retiring blocks thin it out.
-// What the design does not do: a lone stuck ray is not sped up — its steps
-// depend on one another, and bitwise agreement with the plain march fixes
-// their number and order — nor is a warp's lane tail, and the arithmetic
-// of a step is left as it is.
+// 128) blocks) to the rest: on the float32 RK4 emissivity and disc-image
+// batches refill was 9% and 5% slower than the grid launch at the same 9
+// blocks an SM (lane utilisation there is already 0.97-0.99), on the
+// float64 RK45 sourceplane batch 1% slower, and where one
+// stuck ray sets the time (the f64 RK45 plane batch) every refill variant
+// tried was slower: the persistent grid keeps the ray's SM full until the
+// counter runs dry, where the grid launch's retiring blocks thin it out.
+// What the design does not do: a lone stuck ray is not sped up beyond its
+// step's latency — its steps depend on one another, and bitwise agreement
+// with the plain march fixes their number and order — nor is a warp's lane
+// tail; and the math library's own sequences (divide, square root, sincos,
+// pow) are not rewritten.
 //
 // Numerics: no --use_fast_math (it flushes denormals and approximates the
 // transcendentals that the finfo.tiny floors and the DOPRI5 controller rely

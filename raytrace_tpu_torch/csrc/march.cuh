@@ -21,8 +21,10 @@
 
 #if defined(__CUDACC__)
 #define RT_HD __host__ __device__ __forceinline__
+#define RT_NOINLINE static __host__ __device__ __noinline__
 #else
 #define RT_HD inline
+#define RT_NOINLINE static __attribute__((noinline))
 #endif
 
 namespace rt {
@@ -71,10 +73,58 @@ constexpr double E1 = 71.0 / 57600, E3 = -71.0 / 16695, E4 = 71.0 / 1920,
                  E5 = -17253.0 / 339200, E6 = 22.0 / 525, E7 = -1.0 / 40;
 
 // Precise libm calls for each working type (no fast-math intrinsics).
-RT_HD float m_sin(float x) { return sinf(x); }
-RT_HD double m_sin(double x) { return sin(x); }
-RT_HD float m_cos(float x) { return cosf(x); }
-RT_HD double m_cos(double x) { return cos(x); }
+//
+// sin and cos go through a guard. The CUDA math library reduces the
+// argument of sinf/cosf (sin/cos) with a few FMAs (Cody-Waite) while
+// |x| < TRIG_FAST_F32 (TRIG_FAST_F64), and beyond it with a Payne-Hanek
+// reduction: a loop over a table, through local memory in float32, a
+// call in float64. Inlined into the step, that slow path costs the step
+// registers, branches and a stack frame, and a ray never takes it (|theta|
+// stays near [0, pi]). The guard's branch to the out-of-line functions
+// below is the library's own test, `fabs(x) >= TRIG_FAST_*` (the
+// thresholds are those of its PTX, setp.ltu against 105615 and 2^31), so
+// the compiler knows it false on the fast branch and drops the slow path
+// there; a test in any other form (`fabs(x) < threshold`) leaves it in.
+// NaN fails the test and takes the fast branch, as in the library. Both
+// branches call the same sinf/cosf (sin/cos), so the bits are the
+// library's by construction. On the card the fast branch takes sin and
+// cos of one angle with one sincosf (sincos) call, which shares the range
+// reduction that two calls do apart and gives their bits (chip_smoke.py
+// checks every float and 1e9 doubles); the host build calls sin and cos.
+constexpr float TRIG_FAST_F32 = 105615.0f;
+constexpr double TRIG_FAST_F64 = 2147483648.0;
+
+template <typename T> struct SinCos {
+  T s, c;
+};
+
+RT_NOINLINE SinCos<float> sincos_far(float x) { return SinCos<float>{sinf(x), cosf(x)}; }
+RT_NOINLINE SinCos<double> sincos_far(double x) { return SinCos<double>{sin(x), cos(x)}; }
+RT_NOINLINE float cos_far(float x) { return cosf(x); }
+RT_NOINLINE double cos_far(double x) { return cos(x); }
+
+RT_HD SinCos<float> m_sincos(float x) {
+  if (fabsf(x) >= TRIG_FAST_F32) return sincos_far(x);
+#if defined(__CUDA_ARCH__)
+  SinCos<float> o;
+  sincosf(x, &o.s, &o.c);
+  return o;
+#else
+  return SinCos<float>{sinf(x), cosf(x)};
+#endif
+}
+RT_HD SinCos<double> m_sincos(double x) {
+  if (fabs(x) >= TRIG_FAST_F64) return sincos_far(x);
+#if defined(__CUDA_ARCH__)
+  SinCos<double> o;
+  sincos(x, &o.s, &o.c);
+  return o;
+#else
+  return SinCos<double>{sin(x), cos(x)};
+#endif
+}
+RT_HD float m_cos(float x) { return fabsf(x) >= TRIG_FAST_F32 ? cos_far(x) : cosf(x); }
+RT_HD double m_cos(double x) { return fabs(x) >= TRIG_FAST_F64 ? cos_far(x) : cos(x); }
 RT_HD float m_sqrt(float x) { return sqrtf(x); }
 RT_HD double m_sqrt(double x) { return sqrt(x); }
 RT_HD float m_abs(float x) { return fabsf(x); }
@@ -98,6 +148,10 @@ template <> struct Lim<double> {
 
 // torch.maximum / torch.minimum: a NaN operand gives NaN.
 template <typename T> RT_HD T vmax(T a, T b) { return (a > b || a != a) ? a : b; }
+// vmax against a floor c that is a constant, never NaN: then "a > c or a
+// is NaN" is "not a <= c", one compare where vmax takes two, and the
+// result is vmax's for every a.
+template <typename T> RT_HD T vmax_floor(T a, T c) { return !(a <= c) ? a : c; }
 template <typename T> RT_HD T vmin(T a, T b) { return (a < b || a != a) ? a : b; }
 template <typename T> RT_HD bool finite(T x) { return m_abs(x) <= Lim<T>::max(); }
 
@@ -121,13 +175,27 @@ template <typename T> struct Spin {
   T a, a2, two_a2;
 };
 
+// The constants of a step in the working type: the DOPRI5 tableau and pi,
+// each rounded once from the double above (make_params). The step reads
+// them from the launch parameters (Params::k, the constant bank): a double
+// that is not a short immediate would cost the card two uniform moves at
+// each use; a float operand from the constant bank costs what an
+// immediate does. The same values and the same operations either way.
+template <typename T> struct Consts {
+  T a21, a31, a32, a41, a42, a43, a51, a52, a53, a54, a61, a62, a63, a64, a65;
+  T b1, b3, b4, b5, b6, e1, e3, e4, e5, e6, e7;
+  T pi, two_pi, half_pi;
+};
+
 // Scalars of one march: spin, outer radius, the inner absorbing radius and
-// the destination's four parameters (see DEST_*), plus the step budgets.
+// the destination's four parameters (see DEST_*), plus the step budgets
+// and the step's constants.
 template <typename T> struct Params {
   Spin<T> spin;
   T r_max, horizon, p0, p1, p2, p3;
   int steplim, max_iters;
   Ctrl<T> c;
+  Consts<T> k;
 };
 
 // The 21 per-ray arrays the march reads and writes (struct of arrays).
@@ -156,13 +224,14 @@ template <typename T>
 RT_HD Rates<T> geodesic_rates(T r, T theta, T k, T h, T Q, T rdot_sign,
                               T thetadot_sign, const Spin<T>& s) {
   const T a = s.a;
-  const T sin_t = m_sin(theta);
-  const T cos_t = m_cos(theta);
+  const SinCos<T> sc = m_sincos(theta);
+  const T sin_t = sc.s;
+  const T cos_t = sc.c;
   T sin2 = sin_t * sin_t;
   const T rhosq = r * r + (a * cos_t) * (a * cos_t);
   const T delta = r * r - T(2) * r + s.a2;
   const T tiny = Lim<T>::tiny();
-  sin2 = vmax(sin2, tiny);
+  sin2 = vmax_floor(sin2, tiny);
   const T rd = rhosq * delta;
   const T inv_all = T(1) / (rd * sin2);
   const T inv_rhosq_delta = inv_all * sin2;
@@ -176,9 +245,9 @@ RT_HD Rates<T> geodesic_rates(T r, T theta, T k, T h, T Q, T rdot_sign,
   const T cos2 = cos_t * cos_t;
   const T ka = k * a;
   o.thetadot_sq = (Q + cos2 * (ka * ka - h * h * inv_sin2)) * (inv_rhosq * inv_rhosq);
-  o.ptheta = m_sqrt(vmax(m_abs(o.thetadot_sq), tiny)) * thetadot_sign;
+  o.ptheta = m_sqrt(vmax_floor(m_abs(o.thetadot_sq), tiny)) * thetadot_sign;
   o.rdot_sq = (k * o.pt - h * o.pphi - rhosq * o.ptheta * o.ptheta) * (delta * inv_rhosq);
-  o.pr = m_sqrt(vmax(m_abs(o.rdot_sq), tiny)) * rdot_sign;
+  o.pr = m_sqrt(vmax_floor(m_abs(o.rdot_sq), tiny)) * rdot_sign;
   o.sin_t = sin_t;
   o.inv_rhosq = inv_rhosq;
   return o;
@@ -209,8 +278,10 @@ template <typename T> RT_HD bool in_annulus(const Params<T>& p, T r) {
 template <int DEST, typename T>
 RT_HD bool dest_reached(const Params<T>& p, T r, T theta, T phi, T prev_theta) {
   if (DEST == DEST_THETA) return theta_reached(p.p0, theta);
-  if (DEST == DEST_PLANE)
-    return r * (m_sin(theta) * p.p0 * m_cos(phi - p.p2) + m_cos(theta) * p.p1) <= -p.p3;
+  if (DEST == DEST_PLANE) {
+    const SinCos<T> sc = m_sincos(theta);
+    return r * (sc.s * p.p0 * m_cos(phi - p.p2) + sc.c * p.p1) <= -p.p3;
+  }
   if (DEST == DEST_SHELL) return r >= p.p0;
   const T tl = p.p2;
   const T lim = tl > 0 ? tl : -tl;
@@ -266,12 +337,13 @@ RT_HD bool k1_checks(Ray<T>& ray, T a, const Rates<T>& k1, T pr1) {
 }
 
 // _polar_reflect on one ray.
-template <typename T> RT_HD void polar_reflect(T& theta, T& phi, T& thetadot_sign) {
+template <typename T>
+RT_HD void polar_reflect(const Consts<T>& k, T& theta, T& phi, T& thetadot_sign) {
   const bool low = theta < 0;
-  const bool high = theta > T(PI);
-  theta = low ? -theta : (high ? T(2.0 * PI) - theta : theta);
+  const bool high = theta > k.pi;
+  theta = low ? -theta : (high ? k.two_pi - theta : theta);
   if (low || high) {
-    phi = phi + T(PI);
+    phi = phi + k.pi;
     thetadot_sign = -thetadot_sign;
   }
 }
@@ -290,7 +362,7 @@ RT_HD void commit(Ray<T>& ray, const Params<T>& p, T capture, T t, T r, T theta,
   ray.pr = pr;
   ray.ptheta = ptheta;
   ray.pphi = pphi;
-  const T half_pi = T(PI / 2);
+  const T half_pi = p.k.half_pi;
   if ((prev_theta < half_pi && theta >= half_pi) || (prev_theta > half_pi && theta <= half_pi))
     ray.eq_cross += 1;
   if (r <= capture)
@@ -356,7 +428,7 @@ RT_HD void euler_rk4_step(Ray<T>& ray, const Params<T>& p, T capture) {
     const T r_n = r + pr1 * step;
     T th_n = theta + pth1 * step;
     T ph_n = ray.phi + pph1 * step;
-    polar_reflect(th_n, ph_n, ray.thetadot_sign);
+    polar_reflect(p.k, th_n, ph_n, ray.thetadot_sign);
     commit<DEST>(ray, p, capture, t_n, r_n, th_n, ph_n, pt1, pr1, pth1, pph1);
     count_step(ray, p, true, s.r_flip);
     return;
@@ -371,7 +443,7 @@ RT_HD void euler_rk4_step(Ray<T>& ray, const Params<T>& p, T capture) {
   const T r_n = r + w * (pr1 + T(2) * k2.pr + T(2) * k3.pr + k4.pr);
   T th_n = theta + w * (pth1 + T(2) * k2.ptheta + T(2) * k3.ptheta + k4.ptheta);
   T ph_n = ray.phi + w * (pph1 + T(2) * k2.pphi + T(2) * k3.pphi + k4.pphi);
-  polar_reflect(th_n, ph_n, ray.thetadot_sign);
+  polar_reflect(p.k, th_n, ph_n, ray.thetadot_sign);
 
   commit<DEST>(ray, p, capture, t_n, r_n, th_n, ph_n, k4.pt, k4.pr, k4.ptheta, k4.pphi);
   count_step(ray, p, true, s.r_flip);
@@ -415,45 +487,46 @@ RT_HD bool rk45_step(Ray<T>& ray, const Params<T>& p, T capture, T& step, Rates<
 
   const T rs = s.rdot_sign, ts = s.thetadot_sign;
   const T kk = ray.k, hh = ray.h, QQ = ray.Q;
-  const Rates<T> k2 = geodesic_rates(r + h_try * (T(A21) * pr1), theta + h_try * (T(A21) * pth1),
+  const Consts<T> tab = p.k;
+  const Rates<T> k2 = geodesic_rates(r + h_try * (tab.a21 * pr1), theta + h_try * (tab.a21 * pth1),
                                      kk, hh, QQ, rs, ts, a);
   const Rates<T> k3 = geodesic_rates(
-      r + h_try * (T(A31) * pr1 + T(A32) * k2.pr),
-      theta + h_try * (T(A31) * pth1 + T(A32) * k2.ptheta), kk, hh, QQ, rs, ts, a);
+      r + h_try * (tab.a31 * pr1 + tab.a32 * k2.pr),
+      theta + h_try * (tab.a31 * pth1 + tab.a32 * k2.ptheta), kk, hh, QQ, rs, ts, a);
   const Rates<T> k4 = geodesic_rates(
-      r + h_try * (T(A41) * pr1 + T(A42) * k2.pr + T(A43) * k3.pr),
-      theta + h_try * (T(A41) * pth1 + T(A42) * k2.ptheta + T(A43) * k3.ptheta),
+      r + h_try * (tab.a41 * pr1 + tab.a42 * k2.pr + tab.a43 * k3.pr),
+      theta + h_try * (tab.a41 * pth1 + tab.a42 * k2.ptheta + tab.a43 * k3.ptheta),
       kk, hh, QQ, rs, ts, a);
   const Rates<T> k5 = geodesic_rates(
-      r + h_try * (T(A51) * pr1 + T(A52) * k2.pr + T(A53) * k3.pr + T(A54) * k4.pr),
-      theta + h_try * (T(A51) * pth1 + T(A52) * k2.ptheta + T(A53) * k3.ptheta +
-                       T(A54) * k4.ptheta),
+      r + h_try * (tab.a51 * pr1 + tab.a52 * k2.pr + tab.a53 * k3.pr + tab.a54 * k4.pr),
+      theta + h_try * (tab.a51 * pth1 + tab.a52 * k2.ptheta + tab.a53 * k3.ptheta +
+                       tab.a54 * k4.ptheta),
       kk, hh, QQ, rs, ts, a);
   const Rates<T> k6 = geodesic_rates(
-      r + h_try * (T(A61) * pr1 + T(A62) * k2.pr + T(A63) * k3.pr + T(A64) * k4.pr +
-                   T(A65) * k5.pr),
-      theta + h_try * (T(A61) * pth1 + T(A62) * k2.ptheta + T(A63) * k3.ptheta +
-                       T(A64) * k4.ptheta + T(A65) * k5.ptheta),
+      r + h_try * (tab.a61 * pr1 + tab.a62 * k2.pr + tab.a63 * k3.pr + tab.a64 * k4.pr +
+                   tab.a65 * k5.pr),
+      theta + h_try * (tab.a61 * pth1 + tab.a62 * k2.ptheta + tab.a63 * k3.ptheta +
+                       tab.a64 * k4.ptheta + tab.a65 * k5.ptheta),
       kk, hh, QQ, rs, ts, a);
 
   // 5th-order solution (b2 = 0), reflect, then the FSAL stage k7 at the new
   // point with the pre-reflection polar sign
-  const T r_new = r + h_try * (T(B1) * pr1 + T(B3) * k3.pr + T(B4) * k4.pr + T(B5) * k5.pr +
-                               T(B6) * k6.pr);
-  T th_new = theta + h_try * (T(B1) * pth1 + T(B3) * k3.ptheta + T(B4) * k4.ptheta +
-                              T(B5) * k5.ptheta + T(B6) * k6.ptheta);
-  const T t_new = ray.t + h_try * (T(B1) * pt1 + T(B3) * k3.pt + T(B4) * k4.pt +
-                                   T(B5) * k5.pt + T(B6) * k6.pt);
-  T phi_new = ray.phi + h_try * (T(B1) * pph1 + T(B3) * k3.pphi + T(B4) * k4.pphi +
-                                 T(B5) * k5.pphi + T(B6) * k6.pphi);
+  const T r_new = r + h_try * (tab.b1 * pr1 + tab.b3 * k3.pr + tab.b4 * k4.pr + tab.b5 * k5.pr +
+                               tab.b6 * k6.pr);
+  T th_new = theta + h_try * (tab.b1 * pth1 + tab.b3 * k3.ptheta + tab.b4 * k4.ptheta +
+                              tab.b5 * k5.ptheta + tab.b6 * k6.ptheta);
+  const T t_new = ray.t + h_try * (tab.b1 * pt1 + tab.b3 * k3.pt + tab.b4 * k4.pt +
+                                   tab.b5 * k5.pt + tab.b6 * k6.pt);
+  T phi_new = ray.phi + h_try * (tab.b1 * pph1 + tab.b3 * k3.pphi + tab.b4 * k4.pphi +
+                                 tab.b5 * k5.pphi + tab.b6 * k6.pphi);
   T ts_r = ts;
-  polar_reflect(th_new, phi_new, ts_r);
+  polar_reflect(tab, th_new, phi_new, ts_r);
   const Rates<T> k7 = geodesic_rates(r_new, th_new, kk, hh, QQ, rs, ts, a);
 
-  const T err_r = h_try * (T(E1) * pr1 + T(E3) * k3.pr + T(E4) * k4.pr + T(E5) * k5.pr +
-                           T(E6) * k6.pr + T(E7) * k7.pr);
-  const T err_th = h_try * (T(E1) * pth1 + T(E3) * k3.ptheta + T(E4) * k4.ptheta +
-                            T(E5) * k5.ptheta + T(E6) * k6.ptheta + T(E7) * k7.ptheta);
+  const T err_r = h_try * (tab.e1 * pr1 + tab.e3 * k3.pr + tab.e4 * k4.pr + tab.e5 * k5.pr +
+                           tab.e6 * k6.pr + tab.e7 * k7.pr);
+  const T err_th = h_try * (tab.e1 * pth1 + tab.e3 * k3.ptheta + tab.e4 * k4.ptheta +
+                            tab.e5 * k5.ptheta + tab.e6 * k6.ptheta + tab.e7 * k7.ptheta);
   const T sc_r = c.rk45_tol * (T(1) + vmax(m_abs(r), m_abs(r_new)));
   const T sc_th = c.rk45_tol * (T(1) + vmax(m_abs(theta), m_abs(th_new)));
   const T e_r = err_r / sc_r;
@@ -467,7 +540,7 @@ RT_HD bool rk45_step(Ray<T>& ray, const Params<T>& p, T capture, T& step, Rates<
   const T err_eff = trial_ok ? err_norm : T(1e30);
   if (!trial_ok && h_try <= c.min_step) ray.status |= STATUS_NUMERIC;
 
-  T fac = c.safety * m_pow(T(1) / vmax(err_eff, T(1e-10)), T(0.2));
+  T fac = c.safety * m_pow(T(1) / vmax_floor(err_eff, T(1e-10)), T(0.2));
   fac = vmin(vmax(fac, c.fac_min), c.fac_max);
   const T step_new = vmax(h_try * fac, c.min_step);
 
@@ -610,6 +683,10 @@ inline Params<T> make_params(double spin, double r_max, double horizon, const do
   p.max_iters = max_iters;
   p.c = Ctrl<T>{T(ctrl[0]), T(ctrl[1]), T(ctrl[2]), T(ctrl[3]), T(ctrl[4]), T(ctrl[5]),
                 T(ctrl[6]), T(ctrl[7]), T(ctrl[8]), T(ctrl[9]), T(ctrl[10])};
+  p.k = Consts<T>{T(A21), T(A31), T(A32), T(A41), T(A42), T(A43), T(A51), T(A52),
+                  T(A53), T(A54), T(A61), T(A62), T(A63), T(A64), T(A65),
+                  T(B1),  T(B3),  T(B4),  T(B5),  T(B6),  T(E1),  T(E3),  T(E4),
+                  T(E5),  T(E6),  T(E7),  T(PI),  T(2.0 * PI), T(PI / 2)};
   return p;
 }
 

@@ -1,5 +1,5 @@
 // Host build of the per-ray march in march.cuh, one ray after another,
-// and an emulation of the lane-refill schedule.
+// an emulation of the lane-refill schedule, and the guarded trig.
 //
 // The CUDA kernel (march.cu) runs the same march_one<T, METHOD, DEST> per
 // thread; this file lets the CPU tests check that step logic with g++
@@ -92,6 +92,16 @@ int reached_dest(int dest, const void* const* pts, int64_t n, const double* dest
   }
 }
 
+template <typename T> void trig_all(const void* x, int64_t n, void* s, void* c, void* cc) {
+  const T* xs = static_cast<const T*>(x);
+  for (int64_t i = 0; i < n; ++i) {
+    const rt::SinCos<T> o = rt::m_sincos(xs[i]);
+    static_cast<T*>(s)[i] = o.s;
+    static_cast<T*>(c)[i] = o.c;
+    static_cast<T*>(cc)[i] = rt::m_cos(xs[i]);
+  }
+}
+
 }  // namespace
 
 // Destination.reached on n given points (r, theta, phi, prev_theta), with
@@ -107,6 +117,20 @@ extern "C" int rt_reached_host(const void* r, const void* theta, const void* phi
   const double dest_params[4] = {dest_p0, dest_p1, dest_p2, dest_p3};
   if (dtype == 0) return reached_dest<float>(dest, pts, n, dest_params, out);
   if (dtype == 1) return reached_dest<double>(dest, pts, n, dest_params, out);
+  return 1;
+}
+
+// The guarded trig of march.cuh on n points of the working type (dtype 0
+// float, 1 double): sin and cos from m_sincos into s and c, m_cos into cc.
+extern "C" int rt_trig_host(const void* x, int64_t n, int dtype, void* s, void* c, void* cc) {
+  if (dtype == 0) {
+    trig_all<float>(x, n, s, c, cc);
+    return 0;
+  }
+  if (dtype == 1) {
+    trig_all<double>(x, n, s, c, cc);
+    return 0;
+  }
   return 1;
 }
 

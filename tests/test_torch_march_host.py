@@ -12,7 +12,10 @@ DiscWithISCO; FlatPlane and SphericalShell with every method). Each
 destination's ``reached`` is also checked point by point against the plain
 one in float32 (``rt_reached_host``). The lane-refill schedule of the
 kernel, emulated warp by warp on the same lane state machine, is held
-bitwise to the ray-after-ray march for every instantiation.
+bitwise to the ray-after-ray march for every instantiation. The guarded
+trig the step takes sin and cos through (``m_sincos``, ``m_cos``) gives the
+C library's sin and cos bit for bit on both sides of its guard
+(``rt_trig_host``).
 """
 
 import dataclasses
@@ -59,6 +62,8 @@ def _build_host_lib(src_dir, out_dir):
     lib.rt_reached_host.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int]
                                     + [ctypes.c_double] * 4 + [ctypes.c_int, ctypes.c_void_p])
     lib.rt_reached_host.restype = ctypes.c_int
+    lib.rt_trig_host.argtypes = [ctypes.c_void_p, ctypes.c_int64, ctypes.c_int] + [ctypes.c_void_p] * 3
+    lib.rt_trig_host.restype = ctypes.c_int
     return lib
 
 
@@ -442,3 +447,47 @@ def _check_refill_schedule(host_lib, method, kind, dtype):
     dead = (rays.steps < 0).numpy()[:13]
     np.testing.assert_array_equal(want["steps"].numpy()[dead], -1)
     assert (want["steps"].numpy()[(k[:13] % 31 == 6).numpy()] == -5).all()
+
+
+def _libm(name, dtype):
+    """The C library's sin or cos of one working type, as ctypes calls it."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    ctype = ctypes.c_float if dtype == np.float32 else ctypes.c_double
+    fn = getattr(libm, name + ("f" if dtype == np.float32 else ""))
+    fn.argtypes, fn.restype = [ctype], ctype
+    return fn
+
+
+@pytest.mark.parametrize("dtype, fast", [(np.float32, 105615.0), (np.float64, 2.0**31)])
+def test_host_guarded_trig_is_the_c_library_trig(host_lib, dtype, fast):
+    """m_sincos and m_cos (csrc/march.cuh) give the C library's sin and cos
+    bit for bit: at the guard's threshold (the largest |x| the CUDA math
+    library reduces with its fast path, TRIG_FAST_F32 / TRIG_FAST_F64) and
+    8 representable numbers either side of it, at +-0, NaN and +-inf, at
+    multiples of pi/4, and on a seeded sweep of magnitudes from 1e-30 to
+    1e10 of either sign. Both sides of the guard call the same functions;
+    this holds the host build's wiring of them."""
+    rng = np.random.default_rng(11)
+    edge = np.array([fast], dtype)
+    near = [edge]
+    for direction in (np.inf, 0.0):
+        x = edge.copy()
+        for _ in range(8):
+            x = np.nextafter(x, dtype(direction))
+            near.append(x)
+    near = np.concatenate(near)
+    special = np.array([0.0, -0.0, np.nan, np.inf, -np.inf], dtype)
+    quarter = (np.arange(-1273, 1274) * (np.pi / 4)).astype(dtype)
+    sweep = (rng.choice([-1.0, 1.0], 20_000) * 10.0 ** rng.uniform(-30, 10, 20_000)).astype(dtype)
+    x = np.ascontiguousarray(np.concatenate([near, -near, special, quarter, sweep]))
+    s, c, cc = (np.empty_like(x) for _ in range(3))
+    code = 0 if dtype == np.float32 else 1
+    assert host_lib.rt_trig_host(x.ctypes.data, len(x), code, s.ctypes.data, c.ctypes.data,
+                                 cc.ctypes.data) == 0
+    view = np.uint32 if dtype == np.float32 else np.uint64
+    libm_sin, libm_cos = _libm("sin", dtype), _libm("cos", dtype)
+    want_s = np.array([libm_sin(float(v)) for v in x], dtype)
+    want_c = np.array([libm_cos(float(v)) for v in x], dtype)
+    for got, want in ((s, want_s), (c, want_c), (cc, want_c)):
+        np.testing.assert_array_equal(got.view(view), want.view(view))
+    assert (np.abs(x) >= fast).sum() >= 20 and (np.abs(x[np.isfinite(x)]) < fast).sum() > 1000
