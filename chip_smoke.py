@@ -73,7 +73,27 @@ script exits non-zero:
      launch timed in turns (grid, refill, refill, grid), the refill result
      bitwise the grid launch's; occupancy, registers, lane figures from
      the step counts, one step's latency of the batch's longest ray alone
-     and the bound (time_schedules).
+     and the bound (time_schedules);
+ 14. slice parity (slice_phases): the kernel against the plain march,
+     euler/rk4/rk45 x theta in float32 and float64 at steplim 3000, on four
+     batches built as the slice's apps build them (slice_batch): a jet
+     (v_jet 0.5, h 5), an arbitrary 4-velocity source, the returning-radiation
+     disc source at r = 6 and a HEALPix order-4 lamppost (15,360 rays); a
+     superluminal jet (v 0.6 at r = 4) ends NUMERIC with no real fate on
+     both routes; RadialVelocityField goes through trace_auto to the plain
+     march on the card with no kernel launch;
+ 15. slice full width: lamppost main_sky (static and --v_jet=0.5),
+     main_angdist and main_sky_discfrac (--integrator=rk4, euler) and
+     return_radiation main_photonfrac_r on par_example/emissivity.par's
+     grid and source (2,507,316 rays), healpix_apps main_to_disc at order 8
+     (3,932,160 rays), main_photonfrac with its defaults (20 launches of
+     5,040 rays) and trace_rays main on par_example/trace_rays.par; each
+     CLI's wall, its march's share (CUDA events around trace_auto) and its
+     launch count (zeroed before, read after), its output read back; then
+     the kernel against the plain march on the jet sky, disc-source and
+     HEALPix batches (hold_full_width);
+ 16. the two trajectory goldens through trace_rays main and main_imageplane
+     on the card, under the gates of tests/test_capabilities.py:346-440.
 A main path's batch is held against the plain march in full
 (hold_full_width): at kernel_steplim where no ray sticks, otherwise at
 STUCK_STEPLIM, so that every ray, stuck or not, is compared over its
@@ -94,6 +114,7 @@ latency_bound_ms the longest ray's steps times one step's latency.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -146,6 +167,31 @@ CAUSTIC_PARITY = (
     + [(m, "shell", "float64") for m in ("euler", "rk4", "rk45")]
 )
 SHELL = dict(r_shell=40.0, boundary=2.5)
+# phases 14-16: the lamppost family, moving sources, returning radiation,
+# HEALPix and the trajectory dumps
+SLICE_KINDS = ("jet", "vel", "disc", "healpix")
+SLICE_STEPLIM = 3000
+TRACE_RAYS_PARFILE = ROOT / "par_example" / "trace_rays.par"
+TRAJ_GOLDEN = ROOT / "tests" / "golden" / "trace_rays_a0.998_r5_euler.dat"
+TRAJ_GOLDEN_IP = ROOT / "tests" / "golden" / "trace_rays_imageplane_a0.9_d100_i60_euler.dat"
+# phase 15: (app module, entry, extra arguments, tag, variant, launches,
+# batch held at full width or None); every run but the last two reads the
+# emissivity par file's grid (2,507,316 rays) and source
+SLICE_RUNS = (
+    ("lamppost", "main_sky", [], "sky static", "rk45_theta", 1, None),
+    ("lamppost", "main_sky", ["--v_jet=0.5"], "sky jet", "rk45_theta", 1, "jet"),
+    ("lamppost", "main_angdist", [], "angdist", "rk45_theta", 1, None),
+    ("lamppost", "main_sky_discfrac", ["--integrator=rk4"], "discfrac rk4", "rk4_theta", 1, None),
+    ("lamppost", "main_sky_discfrac", ["--integrator=euler"], "discfrac euler", "euler_theta", 1,
+     None),
+    ("return_radiation", "main_photonfrac_r", ["--r_source=6"], "photonfrac_r", "rk45_theta", 1,
+     "disc"),
+    ("healpix_apps", "main_to_disc", ["--order=8"], "healpix to_disc", "rk45_theta", 1,
+     "healpix"),
+    ("return_radiation", "main_photonfrac", ["--spin=0.998"], "photonfrac", "rk45_theta", 20,
+     None),
+    ("trace_rays", "main", [], "trace_rays", None, 0, None),
+)
 # The bound of a march (march_bound) counts what one full iteration of the
 # kernel's march loop must issue, by pipe. Phase 1 reads it from nvdisasm
 # of csrc/march.cu built as a cubin with the march kernel's flags, grid
@@ -915,8 +961,7 @@ def step_latency_us(rays, spin, out, schedule, kw, torch):
 
     longest = int(out.steps.abs().argmax())
     n_steps = int(out.steps.abs()[longest])
-    one = rays.replace(**{f: getattr(rays, f)[longest:longest + 1]
-                          for f in rays.__dataclass_fields__})
+    one = rays[longest:longest + 1]
     half = max(n_steps // 2, 1)
     args = dict(dest=None, r_max=1000.0, ctrl=StepControl(), boundary=None)
     args.update((k, v) for k, v in kw.items() if k in args)
@@ -998,6 +1043,133 @@ def time_schedules(path, variant, rays, spin, kw, method, dtype, torch):
                 n_rays=rays.n_rays)
 
 
+def slice_batch(kind):
+    """Phase 14's batch of one source, on the card in float64 after
+    redshift_start, as the slice's apps build it, and its spin: a jet
+    (v_jet = 0.5, h = 5, spin 0.998) and an arbitrary 4-velocity (u_r 0.1,
+    u_phi 0.02 at r = 6, theta = 0.8) through apps.lamppost._build_source on the
+    0.05 grid, the disc source at r = 6 (spin 0.9) of return_radiation on
+    the 0.05 grid, and a HEALPix order-4 lamppost (15,360 rays)."""
+    from raytrace_tpu_torch.apps import lamppost as lamppost_app
+    from raytrace_tpu_torch.apps import return_radiation
+    from raytrace_tpu_torch.config import Config
+    from raytrace_tpu_torch.geometry import keplerian_omega
+    from raytrace_tpu_torch.ops.redshift import redshift_start
+    from raytrace_tpu_torch.sources import PointSourceGrid, healpix_point_source
+
+    grid = PointSourceGrid.from_steps(0.05, 0.05)
+    if kind in ("jet", "vel"):
+        extra = (["--source=0 5 1e-3 0", "--v_jet=0.5"] if kind == "jet"
+                 else ["--source=0 6 0.8 0", "--u_r=0.1", "--u_phi=0.02"])
+        rays, spin, _ = lamppost_app._build_source(Config([f"--spin={SPIN}"] + extra), grid)
+        return redshift_start(rays, spin, 0.0), spin
+    if kind == "disc":
+        rays = return_radiation.disc_source_rays(6.0, 0.9, grid, device="cuda")
+        return redshift_start(rays, 0.9, keplerian_omega(6.0, 0.9)), 0.9
+    rays, _ = healpix_point_source((0.0, 5.0, 1e-3, 0.0), SPIN, order=4, device="cuda")
+    return redshift_start(rays, SPIN, 0.0), SPIN
+
+
+class Recorder:
+    """Wraps an app module's ``trace_auto`` while in use, recording what its
+    last call marched and how (rays, spin, keywords and result) and the
+    milliseconds all its calls took on the card (CUDA events around each
+    call, synchronised after it, as the app synchronises when it reads the
+    result back)."""
+
+    def __init__(self, module):
+        self.module = module
+        self.seen = {}
+        self.ms = 0.0
+
+    def __enter__(self):
+        import torch
+
+        real = self.real = self.module.trace_auto
+
+        def route(rays, spin, **kw):
+            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real(rays, spin, **kw)
+            stop.record()
+            torch.cuda.synchronize()
+            self.ms += start.elapsed_time(stop)
+            self.seen.update(rays=rays, spin=spin, kw=dict(kw), out=out)
+            return out
+
+        self.module.trace_auto = route
+        return self
+
+    def __exit__(self, *exc):
+        self.module.trace_auto = self.real
+
+
+def load_trajectories(path):
+    """The trajectories of a dump, one array of rows each (the reader of
+    tests/test_capabilities.py:355-368)."""
+    import numpy as np
+
+    trajs, cur = [], []
+    for line in open(path):
+        s = line.split()
+        if not s:
+            if cur:
+                trajs.append(np.array(cur))
+                cur = []
+            continue
+        cur.append([float(v) for v in s])
+    if cur:
+        trajs.append(np.array(cur))
+    return trajs
+
+
+def check_slice_output(entry, outfile, n_rays):
+    """Read a phase-15 CLI's output back and check it: the sky map's four
+    FITS images over the direction grid with a real fate for nearly every
+    live ray, finite text columns of the expected shape, a dump of one
+    trajectory a ray. Returns a line for the log."""
+    import numpy as np
+
+    from raytrace_tpu_torch.io import read_fits
+
+    if entry == "main_sky":
+        fits = read_fits(str(outfile))
+        fate = fits["FATE"]
+        check(fate.size == n_rays, f"FATE holds {fate.size} rays, not {n_rays}")
+        for ext in ("LAND_R", "REDSHIFT", "TIME"):
+            check(fits[ext].shape == fate.shape, f"{ext} shape {fits[ext].shape}")
+        check(np.isfinite(fits["LAND_R"]).all() and np.isfinite(fits["REDSHIFT"]).all(),
+              "non-finite sky map")
+        live = fate.size - int((fate == -1).sum())
+        disc = fits["LAND_R"][fate == 1]
+        check(live > 0.99 * n_rays and disc.size > 0.05 * n_rays and (disc > 1.0).all(),
+              f"sky fates: {live} live of {n_rays}, {disc.size} on the disc")
+        return (f"escape {(fate == 2).sum() / live:.4f} disc {(fate == 1).sum() / live:.4f} "
+                f"capture {(fate == 0).sum() / live:.4f} of {live} rays")
+    if entry == "main":
+        trajs = load_trajectories(outfile)
+        check(len(trajs) == n_rays and all(len(t) > 1 and np.isfinite(t).all() for t in trajs),
+              f"trajectory dump: {len(trajs)} of {n_rays} rays")
+        return f"{len(trajs)} trajectories, {sum(len(t) for t in trajs)} rows"
+    rows = np.atleast_2d(np.loadtxt(outfile))
+    cols = {"main_angdist": 6, "main_sky_discfrac": 4, "main_photonfrac_r": 5,
+            "main_to_disc": 5, "main_photonfrac": 5}[entry]
+    check(rows.shape[1] == cols, f"{entry}: {rows.shape[1]} columns")
+    if entry == "main_sky_discfrac":
+        check(abs(rows[0, :3].sum() - 1) < 0.01 and rows[0, 3] > 0.99 * n_rays,
+              f"discfrac row {rows[0]}")
+        return f"disc {rows[0, 0]:.4f} escape {rows[0, 1]:.4f} capture {rows[0, 2]:.4f}"
+    if entry == "main_photonfrac":
+        check(rows.shape[0] == 20 and (np.abs(rows[:, 1:4].sum(axis=1) - 1) < 0.01).all(),
+              f"photonfrac rows {rows}")
+        return (f"20 radii, return {rows[0, 1]:.4f} at r {rows[0, 0]:.3f} to {rows[-1, 1]:.4f} "
+                f"at r {rows[-1, 0]:.3f}")
+    counts = rows[:, 1]
+    check(counts.sum() > 0 and np.isfinite(rows[counts > 0]).all(),
+          f"{entry}: empty or non-finite bins")
+    return f"{rows.shape[0]} bins, {counts.sum():.0f} rays binned"
+
+
 def ptxas_lines(log):
     """One line per kernel of nvcc's -Xptxas -v output: schedule, method,
     destination and dtype, then registers, stack and spills."""
@@ -1029,6 +1201,173 @@ def ptxas_lines(log):
                    f"stack {k.get('stack')} B, spill stores {k.get('stores')} B, "
                    f"loads {k.get('loads')} B")
     return out
+
+
+def slice_phases(launches, torch):
+    """Phases 14-16: the lamppost family, moving sources, returning
+    radiation, HEALPix and the trajectory dumps. Adds the kernel launches of
+    phase 15's runs to ``launches`` by variant."""
+    import importlib
+
+    import numpy as np
+
+    from raytrace_tpu_torch import ops
+    from raytrace_tpu_torch.apps import emissivity, trace_rays
+    from raytrace_tpu_torch.apps import lamppost as lamppost_app
+    from raytrace_tpu_torch.config import Config
+    from raytrace_tpu_torch.destinations import RadialVelocityField
+    from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, trace, trace_auto
+    from raytrace_tpu_torch.sources import PointSourceGrid
+
+    with Phase("14 slice parity"):
+        for kind in SLICE_KINDS:
+            rays64, spin = slice_batch(kind)
+            live = (rays64.steps == 0).cpu().numpy()
+            for dtype in (torch.float32, torch.float64):
+                rays = rays64.to(dtype=dtype)
+                for method in ("euler", "rk4", "rk45"):
+                    kw = dict(method=method, steplim=SLICE_STEPLIM)
+                    a = march_kernel.trace_kernel(rays, spin, march_dtype=dtype, **kw)
+                    torch.cuda.synchronize()
+                    p_ms, b = cuda_ms(lambda: trace(rays, spin, **kw), torch, repeats=1,
+                                      warmup=False)
+                    p = parity(a, b, live, dtype, torch)
+                    tag = f"{kind}_{method}_{str(dtype).replace('torch.float', 'f')}"
+                    print(parity_line(tag, p) + f" | {rays.n_rays} rays, plain {p_ms:.1f} ms")
+                    check(p["ok"], f"parity gates failed for {tag}: {p}")
+        del rays64, rays, a, b
+
+        # a superluminal jet (tests/test_lamppost.py:163): NaN constants, no
+        # real fate on either route, the kernel ending every ray at once
+        cfg = Config(["--spin=0.9", "--source=0 4 1e-3 0", "--v_jet=0.6", "--dcosalpha=0.05",
+                      "--dbeta=0.05", "--r_esc=50", "--steplim=2000"])
+        grid = PointSourceGrid.from_steps(0.05, 0.05)
+        rays, spin, _ = lamppost_app._build_source(cfg, grid)
+        before = march_kernel.launches
+        out, fate, live = lamppost_app._trace_fates(cfg, rays, spin, grid)
+        check(march_kernel.launches == before + 1, "the superluminal batch missed the kernel")
+        plain = trace(rays, spin, method="rk45", r_max=50.0, steplim=2000)
+        for route, st, steps in (("kernel", out.status, out.steps), ("plain", plain.status,
+                                                                     plain.steps)):
+            st, steps = st.cpu().numpy()[live], steps.cpu().numpy()[live]
+            check(((st & 7) == 0).all() and ((st & 64) != 0).all() and (steps <= 1).all(),
+                  f"superluminal jet on the {route} route: statuses {sorted(set(st))}, "
+                  f"steps up to {steps.max()}")
+        check((fate[live] == -1).all(), "a superluminal ray got a real fate")
+        print(f"superluminal jet (v 0.6 at r = 4, spin 0.9): {int(live.sum())} live rays, "
+              f"NUMERIC without DEST/HORIZON/RLIM on the kernel and the plain route, "
+              f"no real fate")
+
+        # RadialVelocityField through trace_auto: the plain march, on the card
+        rays, spin = slice_batch("jet")
+        before, plain_routes = march_kernel.launches, ops.routes["plain"]
+        p_ms, out = cuda_ms(lambda: trace_auto(rays, spin, method="rk45",
+                                               dest=RadialVelocityField(0.3), r_max=60.0,
+                                               steplim=SLICE_STEPLIM), torch, repeats=1,
+                            warmup=False)
+        check(march_kernel.launches == before and ops.routes["plain"] == plain_routes + 1,
+              "RadialVelocityField did not take the plain route")
+        check(out.r.is_cuda and out.r.dtype == torch.float64, "RadialVelocityField left the card")
+        ends = out.status[rays.steps == 0]
+        check(bool((((ends & 1) == 0) & ((ends & 6) != 0)).float().mean() > 0.99),
+              "RadialVelocityField rays did not run to the horizon or r_max")
+        print(f"RadialVelocityField(0.3) through trace_auto: plain march on {out.r.device}, "
+              f"{out.r.dtype}, no kernel launch, {p_ms:.1f} ms")
+        del rays, out, plain
+
+    with Phase("15 slice full width"):
+        n_par = emissivity.compute_args(Config([f"--parfile={PARFILE}"]))["grid"].n_rays
+        slice_held = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            for mod, entry, extra, tag, variant, n_expect, hold in SLICE_RUNS:
+                app = importlib.import_module(f"raytrace_tpu_torch.apps.{mod}")
+                suffix = ".fits" if entry == "main_sky" else ".dat"
+                outfile = Path(tmp) / f"{tag.replace(' ', '_')}{suffix}"
+                par = (TRACE_RAYS_PARFILE if mod == "trace_rays" else
+                       None if entry == "main_photonfrac" else PARFILE)
+                argv = ([f"--parfile={par}"] if par else []) + [f"--outfile={outfile}"] + extra
+                march_kernel.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rec = Recorder(app) if hasattr(app, "trace_auto") else contextlib.nullcontext()
+                with rec:
+                    rc = getattr(app, entry)(argv)
+                    torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n_launch = march_kernel.launches
+                check(rc == 0, f"{mod}.{entry} {extra} returned {rc}")
+                check(n_launch == n_expect,
+                      f"{mod}.{entry} {extra}: {n_launch} kernel launches, not {n_expect}")
+                if variant:
+                    launches[variant] = launches.get(variant, 0) + n_launch
+                n_rays = {"main_to_disc": 5 * 12 * 4**8, "main_photonfrac": 20 * 5040,
+                          "main": 25}.get(entry, n_par)
+                line = check_slice_output(entry, outfile, n_rays)
+                march = (f"march (trace_auto) {rec.ms / 1e3:.3f} s = "
+                         f"{rec.ms / 1e3 / wall:.1%} of it" if isinstance(rec, Recorder)
+                         else "march in plain torch (trace_with_history)")
+                print(f"full width {mod}.{entry} {' '.join(extra)} ({tag}): {n_rays} rays, wall "
+                      f"{wall:.3f} s, {n_rays / wall:.4e} rays/s, {march}, {n_launch} kernel "
+                      f"launch(es); {line}")
+                if hold:
+                    seen = rec.seen
+                    kw = dict(seen["kw"])
+                    method = kw.pop("method")
+                    kw.pop("steplim")
+                    check(seen["rays"].r.dtype == torch.float64 and method == "rk45",
+                          f"{tag} marched {method} on a {seen['rays'].r.dtype} batch")
+                    slice_held[hold] = (seen["rays"].to(dtype=torch.float32), seen["spin"], kw)
+                    seen.clear()
+
+        # the kernel against the plain march on three of those batches, as
+        # trace_auto marched them (float32), in full
+        for hold, (rays, spin, kw) in slice_held.items():
+            out = march_kernel.trace_kernel(rays, spin, method="rk45",
+                                            steplim=kernel_steplim("rk45"), **kw)
+            hold_full_width(f"{hold}_rk45_f32", rays, spin, "rk45", kw, out, torch.float32,
+                            torch)
+        del slice_held, rays, out
+
+    with Phase("16 trajectory goldens"):
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "lamppost.dat"
+            t0 = time.perf_counter()
+            rc = trace_rays.main([f"--outfile={out}", "--source=0 5 1E-3 0", "--V=0",
+                                  "--spin=0.998", "--dcosalpha=0.4", "--dbeta=0.8",
+                                  "--r_max=50", "--theta_max=1.5707963", "--write_step=20",
+                                  "--integrator=euler"])
+            wall = time.perf_counter() - t0
+            ref, mine = load_trajectories(TRAJ_GOLDEN), load_trajectories(out)
+            check(rc == 0 and len(mine) == len(ref) == 40, f"lamppost dump: {len(mine)} rays")
+            matched = 0
+            for m in mine:  # tests/test_capabilities.py:387-404
+                d = [np.linalg.norm(m[0] - r[0]) for r in ref]
+                j = int(np.argmin(d))
+                n = min(len(m), len(ref[j]), 10)
+                matched += d[j] <= 1e-5 and np.abs(m[:n] - ref[j][:n]).max() < 1e-4
+            print(f"trajectory golden (lamppost, euler, spin 0.998): {matched} of 40 matched "
+                  f"to 1e-4 (gate 34), wall {wall:.3f} s")
+            check(matched >= 34, f"only {matched}/40 lamppost trajectories matched")
+
+            out = Path(tmp) / "imageplane.dat"
+            t0 = time.perf_counter()
+            rc = trace_rays.main_imageplane([
+                f"--outfile={out}", "--dist=100", "--incl=60", "--spin=0.9", "--x0=-6.5",
+                "--xmax=5.5", "--Nx=3", "--y0=-6.5", "--ymax=5.5", "--Ny=3", "--write_step=50",
+                "--n_snapshots=1024", "--integrator=euler", "--thetamax=0"])
+            wall = time.perf_counter() - t0
+            ref, mine = load_trajectories(TRAJ_GOLDEN_IP), load_trajectories(out)
+            check(rc == 0 and len(mine) == len(ref) == 9, f"image-plane dump: {len(mine)} rays")
+            worst = -np.inf
+            for m, r in zip(mine, ref):  # tests/test_capabilities.py:430-440
+                check(abs(len(m) - len(r)) <= 1, f"snapshot counts {len(m)} and {len(r)}")
+                n = max(2, min(len(m), len(r)) // 2)
+                excess = np.abs(m[:n] - r[:n]) - (2e-4 + 2e-5 * np.abs(r[:n]))
+                worst = max(worst, float(excess.max()))
+            print(f"trajectory golden (image plane, euler, spin 0.9): 9 trajectories, leading "
+                  f"halves within rtol 2e-5 + atol 2e-4 (largest |diff| - tolerance "
+                  f"{worst:.3e}), wall {wall:.3f} s")
+            check(worst <= 0.0, "image-plane trajectories off the reference")
 
 
 def main() -> int:
@@ -1333,59 +1672,48 @@ def main() -> int:
 
     runs = {}
     with Phase("12 caustic full width"):
-        seen = {}
-        real_route = caustics.trace_auto
-
-        def route(rays, spin, **kw):  # records what the main path marched, and how
-            out = real_route(rays, spin, **kw)
-            seen.update(rays=rays, spin=spin, kw=kw, out=out)
-            return out
-
-        caustics.trace_auto = route
-        try:
-            with tempfile.TemporaryDirectory() as tmp:
-                for target, extra, variant in CAUSTIC_RUNS:
-                    outfile = Path(tmp) / f"{variant}.fits"
-                    argv = [f"--parfile={CAUSTIC_PARFILES[target]}", f"--outfile={outfile}"]
-                    if extra:
-                        argv.append(extra)
-                    cli = caustics.compute_args(Config(argv), target)[0]
-                    march_kernel.launches = 0
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    rc = getattr(caustics, CAUSTIC_MAINS[target])(argv)
-                    torch.cuda.synchronize()
-                    wall = time.perf_counter() - t0
-                    n_launch = march_kernel.launches
-                    launches[variant] = n_launch
-                    rays, kw = seen["rays"], dict(seen["kw"])
-                    method = kw.pop("method")
-                    march_dtype = kw.pop("march_dtype")
-                    kw.pop("steplim")
-                    kind = {"DiscWithISCO": "isco", "FlatPlane": "plane",
-                            "ThetaLimit": "theta"}[type(kw["dest"]).__name__]
-                    check(rc == 0, f"{CAUSTIC_MAINS[target]} returned {rc}")
-                    check(n_launch > 0, f"main path ({target} {extra or ''}) never launched the "
-                                        "kernel")
-                    check(f"{method}_{kind}_f64" == variant and march_dtype == torch.float64
-                          and rays.r.dtype == torch.float64,
-                          f"{target} {extra or ''} marched {method} x {kind} in {march_dtype}")
-                    fits = read_fits(str(outfile))
-                    shape = (cli["grid"].nx, cli["grid"].ny)
-                    for ext, _ in caustics._EXTENSIONS[target]:
-                        check(fits[ext].shape == shape, f"{ext} shape {fits[ext].shape}")
-                        check(np.isfinite(fits[ext]).all(), f"non-finite {ext}")
-                    hit_ext = {"disc": "HIT", "plane": "HIT_PLANE", "sphere": "ESCAPED"}[target]
-                    hits = int(fits[hit_ext].sum())
-                    check(hits > 0, f"{target}: no hits")
-                    print(f"full width {CAUSTIC_MAINS[target]} {extra or ''} ({variant}): "
-                          f"{rays.n_rays} rays, wall {wall:.3f} s, {rays.n_rays / wall:.4e} rays/s, "
-                          f"{hits} hits of {shape[0] * shape[1]} pixels, {n_launch} kernel "
-                          f"launch(es)")
-                    runs[variant] = (rays, seen["spin"], kw, method, seen["out"])
-                    seen.clear()
-        finally:
-            caustics.trace_auto = real_route
+        with Recorder(caustics) as rec, tempfile.TemporaryDirectory() as tmp:
+            seen = rec.seen  # what the main path marched, and how
+            for target, extra, variant in CAUSTIC_RUNS:
+                outfile = Path(tmp) / f"{variant}.fits"
+                argv = [f"--parfile={CAUSTIC_PARFILES[target]}", f"--outfile={outfile}"]
+                if extra:
+                    argv.append(extra)
+                cli = caustics.compute_args(Config(argv), target)[0]
+                march_kernel.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc = getattr(caustics, CAUSTIC_MAINS[target])(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                n_launch = march_kernel.launches
+                launches[variant] = n_launch
+                rays, kw = seen["rays"], dict(seen["kw"])
+                method = kw.pop("method")
+                march_dtype = kw.pop("march_dtype")
+                kw.pop("steplim")
+                kind = {"DiscWithISCO": "isco", "FlatPlane": "plane",
+                        "ThetaLimit": "theta"}[type(kw["dest"]).__name__]
+                check(rc == 0, f"{CAUSTIC_MAINS[target]} returned {rc}")
+                check(n_launch > 0, f"main path ({target} {extra or ''}) never launched the "
+                                    "kernel")
+                check(f"{method}_{kind}_f64" == variant and march_dtype == torch.float64
+                      and rays.r.dtype == torch.float64,
+                      f"{target} {extra or ''} marched {method} x {kind} in {march_dtype}")
+                fits = read_fits(str(outfile))
+                shape = (cli["grid"].nx, cli["grid"].ny)
+                for ext, _ in caustics._EXTENSIONS[target]:
+                    check(fits[ext].shape == shape, f"{ext} shape {fits[ext].shape}")
+                    check(np.isfinite(fits[ext]).all(), f"non-finite {ext}")
+                hit_ext = {"disc": "HIT", "plane": "HIT_PLANE", "sphere": "ESCAPED"}[target]
+                hits = int(fits[hit_ext].sum())
+                check(hits > 0, f"{target}: no hits")
+                print(f"full width {CAUSTIC_MAINS[target]} {extra or ''} ({variant}): "
+                      f"{rays.n_rays} rays, wall {wall:.3f} s, {rays.n_rays / wall:.4e} rays/s, "
+                      f"{hits} hits of {shape[0] * shape[1]} pixels, {n_launch} kernel "
+                      f"launch(es)")
+                runs[variant] = (rays, seen["spin"], kw, method, seen["out"])
+                seen.clear()
 
         # the SphericalShell route (trace_auto, float32) on the bench grid
         bench_grid = PointSourceGrid.from_steps(0.01, 0.01)
@@ -1421,6 +1749,8 @@ def main() -> int:
             timed[path, variant] = time_schedules(path, variant, rays, spin, kw, method, dtype,
                                                   torch)
         batches.clear()
+
+    slice_phases(launches, torch)
 
     print(f"nvidia-smi: {smi_line()}")
     # (name, variant key, main path whose batch timed it)

@@ -5,8 +5,10 @@ Counterpart of ``raytrace_tpu/destinations.py``: ``ThetaLimit`` (alias
 theta_lim > 0 stops at theta >= theta_lim, theta_lim < 0 stops at
 theta <= |theta_lim|, theta_lim == 0 never stops on theta — the
 crossing-aware annulus ``DiscWithISCO``, the caustic apps' source plane
-``FlatPlane`` and the far sphere ``SphericalShell``. Parameters are Python
-floats. ``RadialVelocityField`` is not ported yet.
+``FlatPlane``, the far sphere ``SphericalShell`` and the never-stopping
+``RadialVelocityField``. Parameters are Python floats. The march kernel
+implements the four surfaces (``KERNEL_DESTINATIONS``);
+``RadialVelocityField`` marches on the plain version.
 """
 
 from __future__ import annotations
@@ -172,3 +174,30 @@ class SphericalShell(Destination):
         out = (pr > 0) & (r < self.r_shell)
         lim = (self.r_shell - r) / torch.where(pr == 0, torch.ones_like(pr), pr)
         return torch.where(out, lim, torch.full_like(pr, math.inf))
+
+
+@dataclasses.dataclass(frozen=True)
+class RadialVelocityField(Destination):
+    """A destination that never stops a ray and carries a purely radial
+    observer velocity field dr/dt = v, for the redshifts of radially moving
+    material (the reference's motion = 1 mode, raytracer.cpp:528-535).
+    v < 0 means |v| times the local coordinate speed of light, scaled as
+    the reference scales it (with ``spin + spin`` where 2a is meant)."""
+
+    v: float
+
+    def reached(self, r, theta, phi, prev_theta):
+        return torch.zeros_like(r, dtype=torch.bool)
+
+    def four_velocity(self, r, theta, phi, spin):
+        g = metric_coeffs(r, theta, spin)
+        v = torch.full_like(r, self.v)
+        v = torch.where(v < 0, torch.abs(v) * (r * r - 2.0 * r + spin + spin) / (r * r + spin * spin),
+                        v)
+        ut = 1.0 / torch.sqrt(g.g_tt + g.g_rr * v * v)
+        zero = torch.zeros_like(ut)
+        return (ut, v * ut, zero, zero)
+
+
+# The surfaces the march kernel implements (csrc/march.cuh, DEST_*).
+KERNEL_DESTINATIONS = (ThetaLimit, DiscWithISCO, FlatPlane, SphericalShell)

@@ -3,9 +3,23 @@ CUDA march kernel and its plain version."""
 
 import torch
 
+from raytrace_tpu_torch.destinations import KERNEL_DESTINATIONS
 from raytrace_tpu_torch.ops.integrate import RK45_STEPLIM, STEPLIM, StepControl, trace
 from raytrace_tpu_torch.ops.march_kernel import trace_kernel
 from raytrace_tpu_torch.ops.reductions import radial_bin_profile
+
+# trace_auto's routes so far, by name ("kernel" or "plain"): counted where
+# the route is taken, so a caller can see which engine marched a batch.
+routes = {"kernel": 0, "plain": 0}
+
+
+def kernel_supported(method="rk45", dest=None) -> bool:
+    """Whether the march kernel implements ``method`` towards ``dest``:
+    euler, rk4 or rk45 to ThetaLimit (the default), DiscWithISCO, FlatPlane
+    or SphericalShell. The counterpart of the JAX ``pallas_supported``
+    without its backend test: ``trace_auto`` takes the batch's device."""
+    return method in ("euler", "rk4", "rk45") and (
+        dest is None or type(dest) in KERNEL_DESTINATIONS)
 
 
 def kernel_steplim(method, steplim=None) -> int:
@@ -17,25 +31,30 @@ def kernel_steplim(method, steplim=None) -> int:
 
 
 def trace_auto(rays, spin, march_dtype=None, **kw):
-    """March on the batch's device: a CUDA batch goes to the march kernel
-    (with ``kernel_steplim``), a CPU batch to the plain lock-step ``trace``.
-    Every other keyword is passed on, so both routes take ``trace``'s
-    keywords and reject unknown ones; the method defaults to ``trace``'s
-    rk45 on both.
+    """March on the batch's device: a CUDA batch towards a destination the
+    kernel implements (``kernel_supported``) goes to the march kernel (with
+    ``kernel_steplim``); any other batch, and a CUDA batch towards any
+    other destination (``RadialVelocityField``), to the plain lock-step
+    ``trace`` on its own device. The route follows the destination's type
+    alone and is counted in ``routes``. Every other keyword is passed on,
+    so both routes take ``trace``'s keywords and reject unknown ones; the
+    method defaults to ``trace``'s rk45 on both.
 
     ``march_dtype`` is the kernel's working precision on a CUDA batch:
     float32 when None (as the TPU kernel marches), or float64. The plain
-    march works in the batch's own dtype, so on a CPU batch it must be None
+    march works in the batch's own dtype, so on its route it must be None
     or that dtype."""
-    if rays.r.is_cuda:
-        method = kw.pop("method", "rk45")
+    method = kw.pop("method", "rk45")
+    if rays.r.is_cuda and kernel_supported(method, kw.get("dest")):
+        routes["kernel"] += 1
         steplim = kernel_steplim(method, kw.pop("steplim", None))
         dtype = torch.float32 if march_dtype is None else march_dtype
         return trace_kernel(rays, spin, method=method, steplim=steplim, march_dtype=dtype, **kw)
     if march_dtype not in (None, rays.r.dtype):
         raise ValueError(f"the plain march works in the batch's dtype {rays.r.dtype}, "
                          f"not march_dtype={march_dtype}")
-    return trace(rays, spin, **kw)
+    routes["plain"] += 1
+    return trace(rays, spin, method=method, **kw)
 
 
 __all__ = [
@@ -43,7 +62,9 @@ __all__ = [
     "STEPLIM",
     "StepControl",
     "kernel_steplim",
+    "kernel_supported",
     "radial_bin_profile",
+    "routes",
     "trace",
     "trace_auto",
     "trace_kernel",

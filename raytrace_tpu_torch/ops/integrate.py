@@ -499,10 +499,6 @@ def _seed_rk45_step(st: RayBatch, spin, horizon, ctrl):
     return torch.clamp_min(step, ctrl.min_step)
 
 
-def _gather(st: RayBatch, idx) -> RayBatch:
-    return st.replace(**{f.name: getattr(st, f.name)[idx] for f in dataclasses.fields(st)})
-
-
 def _scatter(full: RayBatch, idx, part: RayBatch) -> RayBatch:
     upd = {}
     for f in dataclasses.fields(full):
@@ -555,7 +551,7 @@ def trace(
     rays = _fresh_propagation_state(rays, spin, horizon, method, ctrl)
     out = rays
     idx = torch.nonzero(rays.active).squeeze(1)
-    st = _gather(rays, idx)
+    st = rays[idx]
     step = st.dt
     rates = _seed_rk45_rates(st, st.active, spin) if method == "rk45" else None
 
@@ -578,7 +574,7 @@ def trace(
             keep = torch.nonzero(st.active).squeeze(1)
             if keep.numel() < st.n_rays:
                 out = _scatter(out, idx, st.replace(dt=step))
-                idx, st, step = idx[keep], _gather(st, keep), step[keep]
+                idx, st, step = idx[keep], st[keep], step[keep]
                 rates = tuple(v[keep] for v in rates) if rates is not None else None
                 replay = None
         if replay is not None:

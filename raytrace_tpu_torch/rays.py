@@ -101,6 +101,12 @@ class RayBatch:
         """Rays that completed normally (the reference's ``steps > 0`` filter)."""
         return self.steps > 0
 
+    def __getitem__(self, idx) -> "RayBatch":
+        """The batch of the rays ``idx`` selects (an index tensor, a slice
+        or a mask), every field indexed alike."""
+        return self.replace(**{f.name: getattr(self, f.name)[idx]
+                               for f in dataclasses.fields(self)})
+
     def to(self, device=None, dtype=None) -> "RayBatch":
         """Move every field to ``device`` and cast the float fields to ``dtype``."""
         upd = {}
