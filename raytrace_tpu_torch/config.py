@@ -83,10 +83,13 @@ class ParameterArgs:
     def __init__(self, argv: Sequence[str] | None = None):
         argv = list(sys.argv[1:] if argv is None else argv)
         self._params: dict[str, str] = {}
+        self._positional: list[str] = []
         for arg in argv:
             if arg.startswith("--"):
                 key, sep, value = arg.partition("=")
                 self._params[key] = value if sep else "1"
+            else:
+                self._positional.append(arg)
 
     def key_exists(self, key: str) -> bool:
         if not key.startswith("--"):
@@ -102,15 +105,23 @@ class ParameterArgs:
             return default
         return _convert(self._params[key], typ)
 
+    @property
+    def positional(self) -> list[str]:
+        """The arguments that are not ``--key[=value]``, in order."""
+        return self._positional
+
 
 class Config:
     """CLI-over-par-file lookup, collapsing the per-app boilerplate the
     reference repeats in every main() (emissivity.cpp:32-55)."""
 
-    def __init__(self, argv: Sequence[str] | None = None):
+    def __init__(self, argv: Sequence[str] | None = None, default_parfile: str | None = None):
+        """``--parfile=`` names the par file; without it, ``default_parfile``
+        (none by default)."""
         self.args = ParameterArgs(argv)
-        parfile = self.args.get("parfile", str, None)
+        parfile = self.args.get("parfile", str, default_parfile)
         self.par = ParameterFile(parfile) if parfile else ParameterFile(text="")
+        self.parfile = parfile
 
     def get(self, key: str, typ=float, default=_SENTINEL):
         if self.args.key_exists(key):

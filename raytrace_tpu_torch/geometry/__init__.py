@@ -1,6 +1,11 @@
 """Kerr geometry, tetrads and disc areas (torch)."""
 
-from raytrace_tpu_torch.geometry.disc import integrate_disc_area_bins, plunge_velocity
+from raytrace_tpu_torch.geometry.disc import (
+    coordinate_disc_area,
+    integrate_disc_area,
+    integrate_disc_area_bins,
+    plunge_velocity,
+)
 from raytrace_tpu_torch.geometry.gramschmidt import gram_schmidt_tetrad
 from raytrace_tpu_torch.geometry.kerr import (
     bl_to_cartesian,
@@ -25,9 +30,11 @@ __all__ = [
     "constants_from_angles",
     "constants_from_frame",
     "constants_from_p",
+    "coordinate_disc_area",
     "geodesic_rates",
     "gram_schmidt_tetrad",
     "horizon_radius",
+    "integrate_disc_area",
     "integrate_disc_area_bins",
     "isco_radius",
     "keplerian_omega",

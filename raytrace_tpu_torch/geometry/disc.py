@@ -1,8 +1,9 @@
 """Proper areas of equatorial accretion-disc annuli.
 
-Counterpart of ``raytrace_tpu/geometry/disc.py`` (reference ``disc.h``) for
-the emissivity path: rest-frame parallelogram areas in the Keplerian region
-and in the ISCO-plunge region, integrated over radial bins.
+Counterpart of ``raytrace_tpu/geometry/disc.py`` (reference ``disc.h``):
+the static-slice annulus area, and rest-frame parallelogram areas in the
+Keplerian region and in the ISCO-plunge region, integrated over one disc
+or over radial bins.
 """
 
 from __future__ import annotations
@@ -21,6 +22,13 @@ from raytrace_tpu_torch.geometry.kerr import (
     metric_dot,
     orbit_tetrad,
 )
+
+
+def coordinate_disc_area(r, dr, a):
+    """Proper area of an equatorial annulus for a static slice (kerr.h:249-265)."""
+    rhosq = r * r
+    delta = r * r - 2.0 * r + a * a
+    return torch.sqrt(r * r + a * a + 2.0 * a * a * r / rhosq) * torch.sqrt(rhosq / delta) * dr
 
 
 def _parallelogram_area(r, dr, dphi, a, tet: Tetrad):
@@ -128,3 +136,15 @@ def integrate_disc_area_bins(
     switch_r = r_isco if r_plunge is None else r_plunge
     area = _kep_plunge_area(r, dr, dphi, a, switch_r, force_keplerian, r_plunge)
     return torch.sum(torch.where(area > 0, area, torch.zeros_like(area)), dim=1)
+
+
+def integrate_disc_area(rmin, rmax, a, force_keplerian=False, n_sub=50, dphi=0.1, logbin=True,
+                        r_plunge=None):
+    """Total rest-frame area of the disc between rmin and rmax: one bin of
+    ``integrate_disc_area_bins``. ``rmin`` and ``rmax`` are scalars; the
+    result is a 0-d float64 tensor on the CPU unless ``rmin`` is a tensor,
+    whose dtype and device it takes."""
+    rmin = torch.as_tensor(rmin, dtype=rmin.dtype if torch.is_tensor(rmin) else torch.float64)
+    rmax = torch.as_tensor(rmax, dtype=rmin.dtype, device=rmin.device)
+    return integrate_disc_area_bins(rmin.reshape(1), rmax.reshape(1), a, force_keplerian,
+                                    n_sub, dphi, logbin, r_plunge)[0]

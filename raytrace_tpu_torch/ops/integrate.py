@@ -49,6 +49,9 @@ _HALF_PI = math.pi / 2
 _CHECK_EVERY = 16
 _COMPACT_EVERY = 256
 _CUDA_GRAPHS = True  # replay each compaction epoch's iteration as a CUDA graph
+# Lock-step iterations so far: one for each iteration ``_march`` runs (eager
+# or replayed) and each z-plane of ``apps.pcyg.compute``; read for measurement.
+iterations = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -549,11 +552,7 @@ def trace(
     capture = _capture_radius(horizon, ctrl.horizon_eps, rays.r)
 
     rays = _fresh_propagation_state(rays, spin, horizon, method, ctrl)
-    out = rays
-    idx = torch.nonzero(rays.active).squeeze(1)
-    st = rays[idx]
-    step = st.dt
-    rates = _seed_rk45_rates(st, st.active, spin) if method == "rk45" else None
+    rates = _seed_rk45_rates(rays, rays.active, spin) if method == "rk45" else None
 
     def advance(st, step, rates):
         if method == "rk45":
@@ -561,6 +560,48 @@ def trace(
                               st.active, step, rates)
         return (_euler_rk4_body(st, spin, horizon, capture, dest, r_max, steplim, ctrl,
                                 method, st.active), step, rates)
+
+    final, _ = _march(rays, rays.dt, rates, advance, max_iters)
+
+    # stuck rays get their (positive) step count negated (raytracer.cpp:336-337)
+    stuck = ((final.status & (RAY_STATUS_STEPLIM | RAY_STATUS_NUMERIC)) != 0) & (final.steps > 0)
+    final = final.replace(steps=torch.where(stuck, -final.steps, final.steps))
+
+    if refine_crossing:
+        final = _refine_theta_crossing(final, dest, spin)
+    return final
+
+
+def _march(rays: RayBatch, step, carry, advance, max_iters: int):
+    """The lock-step loop: ``st, step, carry = advance(st, step, carry)``
+    over the batch's active rays until none is active or ``max_iters``
+    iterations have run. ``step`` is the per-ray step tensor and ``carry``
+    a tuple of per-ray tensors (their first axis the rays) or None; rays
+    that are not active at the start are never marched, and every advance
+    must leave a retired ray as it is. Returns the batch, whose marched
+    rays hold their last ``step`` in ``dt``, and the carry, both at full
+    size.
+
+    Retired rays are dropped every ``_COMPACT_EVERY`` iterations (gather
+    the active rays, march them, scatter back): a retired ray is frozen, so
+    this changes no result and only cuts the cost of the long tail. On a
+    CUDA batch the first iteration of each compaction epoch runs eagerly
+    and the rest replay it as a CUDA graph (``_capture``). ``advance`` may
+    also add into buffers of its own in place (a histogram): the graph
+    replays those additions too. Each iteration run adds one to
+    ``iterations``.
+    """
+    global iterations
+    out = rays
+    out_carry = tuple(v.clone() for v in carry) if carry is not None else None
+    idx = torch.nonzero(rays.active).squeeze(1)
+    st, step = rays[idx], step[idx]
+    carry = tuple(v[idx] for v in carry) if carry is not None else None
+
+    def scatter_back():
+        for full, part in zip(out_carry or (), carry or ()):
+            full[idx] = part
+        return _scatter(out, idx, st.replace(dt=step))
 
     it = 0
     replay = None
@@ -570,29 +611,31 @@ def trace(
         if it % _CHECK_EVERY == 0 and not bool(st.active.any()):
             break
         if it % _COMPACT_EVERY == 0 and it > 0:
-            # drop retired lanes: they are frozen, so this changes nothing
             keep = torch.nonzero(st.active).squeeze(1)
             if keep.numel() < st.n_rays:
-                out = _scatter(out, idx, st.replace(dt=step))
+                out = scatter_back()
                 idx, st, step = idx[keep], st[keep], step[keep]
-                rates = tuple(v[keep] for v in rates) if rates is not None else None
+                carry = tuple(v[keep] for v in carry) if carry is not None else None
                 replay = None
         if replay is not None:
             replay.replay()
         else:
-            st, step, rates = advance(st, step, rates)
+            st, step, carry = advance(st, step, carry)
             if st.r.is_cuda and _CUDA_GRAPHS:
-                (st, step, rates), replay = _capture(advance, st, step, rates)
+                (st, step, carry), replay = _capture(advance, st, step, carry)
         it += 1
-    final = _scatter(out, idx, st.replace(dt=step))
+        iterations += 1
+    return scatter_back(), out_carry
 
-    # stuck rays get their (positive) step count negated (raytracer.cpp:336-337)
-    stuck = ((final.status & (RAY_STATUS_STEPLIM | RAY_STATUS_NUMERIC)) != 0) & (final.steps > 0)
-    final = final.replace(steps=torch.where(stuck, -final.steps, final.steps))
 
-    if refine_crossing:
-        final = _refine_theta_crossing(final, dest, spin)
-    return final
+def _graph(fn):
+    """Capture ``fn()`` on the current CUDA device as a graph. Capturing
+    runs nothing: each ``replay()`` runs the captured kernels on the
+    buffers they were captured on."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
 
 
 def _capture(advance, st: RayBatch, step, rates):
@@ -608,13 +651,14 @@ def _capture(advance, st: RayBatch, step, rates):
     step = step.clone()
     rates = tuple(v.clone() for v in rates) if rates is not None else None
     bufs = [getattr(st, n) for n in names] + [step] + list(rates or ())
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+
+    def iteration():
         st_n, step_n, rates_n = advance(st, step, rates)
         new = [getattr(st_n, n) for n in names] + [step_n] + list(rates_n or ())
         for buf, v in zip(bufs, new):
             buf.copy_(v)
-    return (st, step, rates), graph
+
+    return (st, step, rates), _graph(iteration)
 
 
 def _refine_theta_crossing(st: RayBatch, dest, spin) -> RayBatch:
