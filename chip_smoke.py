@@ -116,6 +116,27 @@ script exits non-zero:
      follows bit for bit) on the perf_test.par grid and the emissivity
      batch, and how much of the rk45 x theta f32 row's excess over its
      bound the rejected trials explain.
+ 19. gradients (gradient_phases; ops/diff.py, torch autograd over the
+     plain step, no kernel of its own), float64 at full width:
+     a. trace_scan's forward (3072 lock-step iterations) against the march
+        kernel (rk4 x theta f64, steplim 3073) on the bench lamppost
+        (125,800 rays): every ray that ends within the iterations has the
+        same status and steps, r, phi, theta and t within rtol 1e-12 (the
+        share bit for bit printed); the launch is the kernels line's
+        rk4 x theta f64 record, timed as phase 13 times the others;
+     b. emissivity_gradient_pipeline(0.998, 5, 2) on that grid, 3072
+        iterations: the value alone, value and reverse-mode gradient in
+        (spin, h, gamma) (checkpointed chunks of 64), and forward mode in
+        each parameter, equal to reverse to rtol 1e-10; walls, ms a
+        forward and a backward step, peak device memory;
+     c. the reference-binary gates of tests/test_diff.py:134-214:
+        d(emis)/d(spin) by forward mode against the 0.89/0.91 goldens' FD,
+        and the height secant against the h 4.5/5.5 goldens (0.05 grid,
+        6144 iterations);
+     d. line_profile_observable on the 89 x 89 dense grid (dist 100, incl
+        55, r_disc 15, 2048 iterations): the gradient of the profile's sum
+        in (spin, incl), reverse against forward mode to rtol 1e-10;
+     the phase's numbers on one line, {"gradients": {...}}.
 A main path's batch is held against the plain march in full
 (hold_full_width): at kernel_steplim where no ray sticks, otherwise at
 STUCK_STEPLIM, so that every ray, stuck or not, is compared over its
@@ -123,7 +144,8 @@ first STUCK_STEPLIM steps, the kernel under the launcher's schedule and,
 where that is the lane-refill schedule, bitwise the grid launch's. On the
 card the plain march replays each compaction epoch's iteration as a CUDA
 graph (ops/integrate.py).
-The last two lines are the per-kernel JSON record and the device record.
+The last three lines are phase 19's record, the per-kernel JSON record and
+the device record.
 A record's ms is its main path's batch at the CLI's steplim under the
 schedule the launcher gives it; bound_ms the largest of its issue times
 (each pipe's instructions, and all of them, over the card's rates; see
@@ -172,6 +194,10 @@ BENCH_STEPLIM = {"rk4": 30_000, "rk45": 40_000}
 # kernel_steplim holds it for ~125k iterations: a batch with stuck rays is
 # compared at STUCK_STEPLIM (phases 4, 8, 12)
 STUCK_STEPLIM = 10_000
+# phase 19: trace_scan's n_steps of the emissivity gradient (and of 19a's
+# batch), and of the binned profile's reference-binary gates
+GRAD_STEPS = 3072
+BINNED_STEPS = 6144
 CAUSTIC_PARFILES = {t: ROOT / "par_example" / f"caustic_{n}.par"
                     for t, n in (("disc", "discplane"), ("plane", "plane"),
                                  ("sphere", "sourceplane"))}
@@ -1033,8 +1059,9 @@ def step_latency_us(rays, spin, out, schedule, kw, torch):
     return ((ms[1] - ms[0]) * 1e3 / half if ms[1] > ms[0] else None), n_steps
 
 
-def time_schedules(path, variant, rays, spin, kw, method, dtype, torch):
-    """Phase 13 on one main path's full-width batch at its CLI's steplim:
+def time_schedules(path, variant, rays, spin, kw, method, dtype, torch, steplim=None):
+    """Phase 13 on one main path's full-width batch at its CLI's steplim
+    (or ``steplim``; phase 19 times its batch at trace_scan's budget):
     the kernel under the launcher's schedule, one CUDA-event launch each of
     two after a warm-up; where that is the refill schedule, it and the grid
     launch in turns (grid, refill, refill, grid), the refill result bitwise
@@ -1048,7 +1075,7 @@ def time_schedules(path, variant, rays, spin, kw, method, dtype, torch):
     dest = kw.get("dest") or ThetaLimit()
     kind = KINDS[march_kernel._dest_args(dest)[0]]
     own = march_kernel.schedule_of(method, dest, dtype)
-    steplim = kernel_steplim(method)
+    steplim = steplim or kernel_steplim(method)
     kernel_kw = dict(kw, method=method, steplim=steplim, march_dtype=dtype)
     order = ["grid", "refill", "refill", "grid"] if own == "refill" else ["grid", "grid"]
     info = {sch: march_kernel.kernel_info(method, dest, dtype, sch) for sch in order}
@@ -1759,6 +1786,216 @@ def outflow_phases(launches, image_fits, torch):
         return reject_run("emissivity batch", rays, par["spin"], torch)
 
 
+def forward_derivative(fn, params, i, torch):
+    """fn(*params) and its forward-mode derivative in params[i]
+    (torch.autograd.forward_ad), each returned as a plain tensor."""
+    from torch.autograd import forward_ad as fwad
+
+    with fwad.dual_level():
+        args = [fwad.make_dual(p, torch.ones_like(p)) if j == i else p
+                for j, p in enumerate(params)]
+        value, tangent = fwad.unpack_dual(fn(*args))
+        return value.clone(), tangent.clone()
+
+
+def gradient_phases(launches, torch):
+    """Phase 19: the differentiable pipeline (ops/diff.py) on the card.
+    Adds 19a's kernel launch to ``launches``; returns its record's parity
+    and timing for the kernels line, and the phase's numbers."""
+    import math
+
+    import numpy as np
+
+    from raytrace_tpu_torch.ops import march_kernel
+    from raytrace_tpu_torch.ops.diff import (emissivity_binned_profile,
+                                             emissivity_gradient_pipeline,
+                                             line_profile_observable, trace_scan)
+    from raytrace_tpu_torch.rays import RAY_STATUS_TERMINAL
+    from raytrace_tpu_torch.sources import ImagePlaneGrid, PointSourceGrid
+
+    f64 = torch.float64
+    nums = {"card": smi_line()}
+
+    def walled(fn):
+        """fn() with its wall (s) and peak device memory (GiB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+
+    bench_grid = PointSourceGrid.from_steps(0.01, 0.01)
+    with Phase("19a gradients: trace_scan against the kernel"):
+        n_steps = GRAD_STEPS
+        rays = lamppost(bench_grid, f64)
+        kw = dict(r_max=500.0)
+        scan, scan_s, _ = walled(lambda: trace_scan(rays, SPIN, method="rk4", n_steps=n_steps,
+                                                    **kw))
+        march_kernel.launches = 0
+        out = march_kernel.trace_kernel(rays, SPIN, method="rk4", steplim=n_steps + 1,
+                                        march_dtype=f64, **kw)
+        torch.cuda.synchronize()
+        launches["rk4_theta_f64"] = march_kernel.launches
+        check(march_kernel.launches == 1, "19a: the kernel was not launched once")
+        live = rays.steps == 0
+        ended = live & ((scan.status & RAY_STATUS_TERMINAL) != 0)
+        unfinished = live & ~ended
+        check(bool((out.steps[unfinished].abs() == n_steps + 1).all()),
+              "19a: a ray trace_scan left unfinished ended early on the kernel")
+        same = (out.status == scan.status) & (out.steps == scan.steps)
+        check(bool(same[ended].all()), f"19a: {int((~same & ended).sum())} of "
+              f"{int(ended.sum())} ended rays differ in status or steps")
+        gaps = {}
+        for f in ("r", "phi", "theta", "t"):
+            a, b = getattr(out, f)[ended], getattr(scan, f)[ended]
+            both_nan = a.isnan() & b.isnan()
+            rel = torch.where(both_nan, 0.0, (a - b).abs() / b.abs().clamp_min(1e-300))
+            gaps[f] = dict(bitwise=float(((a == b) | both_nan).double().mean()),
+                           max_rel=float(rel.max()))
+        print(f"19a: bench lamppost {rays.n_rays} rays, rk4 float64, {int(ended.sum())} ended "
+              f"within n_steps {n_steps} (status and steps equal on all), "
+              f"{int(unfinished.sum())} unfinished; trace_scan against the kernel at steplim "
+              f"{n_steps + 1}: {gaps}; trace_scan wall {scan_s:.3f} s")
+        check(all(g["max_rel"] <= 1e-12 for g in gaps.values()),
+              f"19a: r, phi, theta or t beyond rtol 1e-12: {gaps}")
+        p = parity(out, scan, ended.cpu().numpy(), f64, torch)
+        check(p["ok"], f"19a parity: {p}")
+        timed = time_schedules("gradients", "rk4_theta_f64", rays, SPIN, kw, "rk4", f64, torch,
+                               steplim=n_steps + 1)
+        nums["19a"] = dict(rays=rays.n_rays, ended=int(ended.sum()), gaps=gaps,
+                           trace_scan_s=scan_s, kernel_ms=timed["ms"])
+        held = (p, (scan_s * 1e3, n_steps + 1))
+        del scan, out, rays
+
+    with Phase("19b gradients: emissivity pipeline at full width"):
+        f = lambda s, h, g: emissivity_gradient_pipeline(s, h, g, bench_grid, n_steps=GRAD_STEPS)
+        params = [torch.tensor(x, dtype=f64, device="cuda") for x in (SPIN, 5.0, 2.0)]
+        with torch.no_grad():
+            value, value_s, value_gib = walled(lambda: f(*params))
+        leaves = [q.clone().requires_grad_(True) for q in params]
+
+        def reverse():
+            v = f(*leaves)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads = torch.autograd.grad(v, leaves)
+            torch.cuda.synchronize()
+            return v.detach(), torch.stack(grads), time.perf_counter() - t0
+
+        (v_rev, g_rev, back_s), rev_s, rev_gib = walled(reverse)
+        fwd = []
+        fwd_s = []
+        for i in range(3):
+            (v_fwd, t), s, fwd_gib = walled(lambda: forward_derivative(f, params, i, torch))
+            fwd.append(float(t))
+            fwd_s.append(s)
+            check(bool(v_fwd == value), f"19b: forward-mode value {float(v_fwd)} is not "
+                  f"the value alone {float(value)}")
+        g_rev = g_rev.tolist()
+        rel = [abs(a - b) / abs(b) if b else abs(a) for a, b in zip(fwd, g_rev)]
+        nums["19b"] = dict(
+            rays=bench_grid.n_rays, n_steps=GRAD_STEPS, value=float(value),
+            grad_reverse=g_rev, grad_forward=fwd, rel_forward_reverse=rel,
+            value_s=value_s, value_and_grad_s=rev_s, forward_mode_s=fwd_s,
+            ms_per_forward_step=(rev_s - back_s) / GRAD_STEPS * 1e3,
+            ms_per_backward_step=back_s / GRAD_STEPS * 1e3,
+            ms_per_step_value=value_s / GRAD_STEPS * 1e3,
+            peak_gib=dict(value=value_gib, reverse=rev_gib, forward=fwd_gib),
+            checkpoint_every=64)
+        print(f"19b: E(spin, h, gamma) = {float(value)!r} on {bench_grid.n_rays} rays, n_steps "
+              f"{GRAD_STEPS}; reverse {g_rev}, forward {fwd}, |fwd/rev - 1| {rel}; value alone "
+              f"{value_s:.3f} s, value + gradient {rev_s:.3f} s (backward {back_s:.3f} s), "
+              f"forward mode {[round(x, 3) for x in fwd_s]} s; peak {value_gib:.2f} / "
+              f"{rev_gib:.2f} / {fwd_gib:.2f} GiB")
+        check(float(value) > 0 and float(v_rev) == float(value),
+              f"19b: the recorded value {float(v_rev)} is not the value alone {float(value)}")
+        check(all(math.isfinite(x) for x in g_rev + fwd), "19b: a gradient is not finite")
+        check(max(rel) <= 1e-10, f"19b: forward and reverse mode differ by {rel}")
+
+    with Phase("19c gradients: reference-binary gates"):
+        cols = ["r", "area", "rays", "flux", "emis", "g", "t"]
+        ref = {tag: dict(zip(cols, np.loadtxt(ROOT / "tests" / "golden" /
+                                              f"emissivity_{tag}_g0.05.dat").T))
+               for tag in ("a0.89_h5_rmin2.5", "a0.91_h5_rmin2.5", "a0.998_h4.5",
+                           "a0.998_h5.5")}
+        grid = PointSourceGrid.from_steps(0.05, 0.05, -0.995, 0.995, -math.pi, math.pi)
+        n_steps = BINNED_STEPS
+        # d(emis)/d(spin) at 0.9 against the reference binary's central
+        # difference (tests/test_diff.py:134-173)
+        A, B = ref["a0.89_h5_rmin2.5"], ref["a0.91_h5_rmin2.5"]
+        fd = (B["emis"] - A["emis"]) / 0.02
+        with np.errstate(divide="ignore", invalid="ignore"):
+            signal = np.abs(B["emis"] / np.where(A["emis"] == 0, 1, A["emis"]) - 1)
+        gate = (A["rays"] >= 100) & (A["rays"] == B["rays"]) & (signal > 0.004)
+        check(gate.sum() >= 3, "19c: fewer than 3 gated bins")
+        spin = torch.tensor(0.9, dtype=f64, device="cuda")
+        counts = {}
+        (emis_mid, d_emis), spin_s, spin_gib = walled(lambda: forward_derivative(
+            lambda a: torch.stack(emissivity_binned_profile(a, 5.0, 2.0, grid, r_min=2.5,
+                                                            n_steps=n_steps)), [spin], 0, torch))
+        counts_mid = emis_mid[1].cpu().numpy()
+        d_emis = d_emis[0].cpu().numpy()
+        check((np.abs(counts_mid[gate] - A["rays"][gate]) <= 0.10 * A["rays"][gate]).all(),
+              "19c: the midpoint run's gated bins are not populated like the reference's")
+        rel_spin = np.abs(d_emis[gate] / fd[gate] - 1.0)
+        # the height secant at spin 0.998 (tests/test_diff.py:176-214)
+        A, B = ref["a0.998_h4.5"], ref["a0.998_h5.5"]
+        secant_s = time.perf_counter()
+        for h in (4.5, 5.5):
+            e, c = emissivity_binned_profile(SPIN, h, 2.0, grid, n_steps=n_steps)
+            counts[h] = (e.cpu().numpy(), c.cpu().numpy())
+        secant_s = time.perf_counter() - secant_s
+        (e45, c45), (e55, c55) = counts[4.5], counts[5.5]
+        hgate = ((A["rays"] >= 100) & (B["rays"] >= 100)
+                 & (np.abs(A["rays"] - B["rays"]) < 0.10 * A["rays"])
+                 & (np.abs(c45 - A["rays"]) < 0.10 * A["rays"])
+                 & (np.abs(c55 - B["rays"]) < 0.10 * B["rays"]))
+        check(hgate.sum() >= 5, "19c: fewer than 5 height-gated bins")
+        rel_h = np.abs((e55 - e45)[hgate] / (B["emis"] - A["emis"])[hgate] - 1.0)
+        nums["19c"] = dict(rays=grid.n_rays, n_steps=n_steps, spin_gated_bins=int(gate.sum()),
+                           spin_rel=rel_spin.tolist(), spin_forward_s=spin_s,
+                           spin_peak_gib=spin_gib, height_gated_bins=int(hgate.sum()),
+                           height_median=float(np.median(rel_h)), height_max=float(rel_h.max()),
+                           height_values_s=secant_s)
+        print(f"19c: d(emis)/d(spin) by forward mode against the reference FD on "
+              f"{int(gate.sum())} gated bins: {rel_spin} (gate < 0.10), {spin_s:.3f} s; height "
+              f"secant on {int(hgate.sum())} bins: median {np.median(rel_h):.4f} (< 0.15), max "
+              f"{rel_h.max():.4f} (< 0.25), {secant_s:.3f} s for both values")
+        check(rel_spin.max() < 0.10, f"19c: d(emis)/d(spin) off the reference FD: {rel_spin}")
+        check(np.median(rel_h) < 0.15 and rel_h.max() < 0.25, f"19c: height secant {rel_h}")
+
+    with Phase("19d gradients: line profile"):
+        grid = ImagePlaneGrid.from_steps(-10.875, 11.125, 0.25, -10.875, 11.125, 0.25)
+        f = lambda a, i: line_profile_observable(a, i, grid, dist=100.0, r_disc=15.0,
+                                                 n_steps=2048).sum()
+        params = [torch.tensor(x, dtype=f64, device="cuda") for x in (0.9, 55.0)]
+        leaves = [q.clone().requires_grad_(True) for q in params]
+        (v_rev, g_rev), rev_s, rev_gib = walled(
+            lambda: (lambda v: (v.detach(), torch.stack(torch.autograd.grad(v, leaves))))(
+                f(*leaves)))
+        g_rev = g_rev.tolist()
+        fwd, fwd_s = [], []
+        for i in range(2):
+            (v_fwd, t), s, fwd_gib = walled(lambda: forward_derivative(f, params, i, torch))
+            fwd.append(float(t))
+            fwd_s.append(s)
+        rel = [abs(a - b) / abs(b) if b else abs(a) for a, b in zip(fwd, g_rev)]
+        nums["19d"] = dict(rays=grid.n_rays, n_steps=2048, value=float(v_rev),
+                           grad_reverse=g_rev, grad_forward=fwd, rel_forward_reverse=rel,
+                           value_and_grad_s=rev_s, forward_mode_s=fwd_s,
+                           peak_gib=dict(reverse=rev_gib, forward=fwd_gib))
+        print(f"19d: line profile sum {float(v_rev)!r} on {grid.n_rays} rays; d/d(spin, incl) "
+              f"reverse {g_rev}, forward {fwd}, |fwd/rev - 1| {rel}; value + gradient "
+              f"{rev_s:.3f} s, forward mode {[round(x, 3) for x in fwd_s]} s; peak "
+              f"{rev_gib:.2f} / {fwd_gib:.2f} GiB")
+        check(float(v_rev) > 0 and float(v_fwd) == float(v_rev),
+              f"19d: values {float(v_rev)} (reverse), {float(v_fwd)} (forward)")
+        check(all(math.isfinite(x) for x in g_rev + fwd), "19d: a gradient is not finite")
+        check(max(rel) <= 1e-10, f"19d: forward and reverse mode differ by {rel}")
+    return held, timed, nums
+
+
 def main() -> int:
     import torch
 
@@ -2147,6 +2384,8 @@ def main() -> int:
 
     slice_phases(launches, torch)
     rejects = outflow_phases(launches, image_fits, torch)
+    held["gradients", "rk4_theta_f64"], timed["gradients", "rk4_theta_f64"], grads = (
+        gradient_phases(launches, torch))
 
     print(f"nvidia-smi: {smi_line()}")
     # (name, variant key, main path whose batch timed it)
@@ -2158,7 +2397,8 @@ def main() -> int:
         ("geodesic_march_rk45_isco_f32", "rk45_isco", "disc image"),
     ] + [(f"geodesic_march_{v.replace('_theta', '')}", v, "caustics") for _, _, v in CAUSTIC_RUNS
          ] + [(f"geodesic_march_{m}_shell_f32", f"{m}_shell_f32", "shell route")
-              for m in ("euler", "rk4", "rk45")]
+              for m in ("euler", "rk4", "rk45")
+              ] + [("geodesic_march_rk4_f64", "rk4_theta_f64", "gradients")]
     kernels = []
     for name, variant, path in records:
         t, (p, (plain_ms, plain_steplim)) = timed[path, variant], held[path, variant]
@@ -2201,6 +2441,7 @@ def main() -> int:
           f"({rejects['share']:.4%} of the trials) raise the bound to "
           f"{rk45['bound_ms_with_trials']:.3f} ms ({over_trials:.3f}x): they explain "
           f"{(per_step - 1) / (over - 1):.1%} of the excess")
+    print(json.dumps({"gradients": grads}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                               "count": torch.cuda.device_count()}}))

@@ -1,9 +1,22 @@
-"""Integrator cores and reductions (torch), and the route between the
-CUDA march kernel and its plain version."""
+"""Integrator cores and reductions (torch), the route between the CUDA
+march kernel and its plain version, and the differentiable march and
+observables (``ops/diff.py``)."""
 
 import torch
 
 from raytrace_tpu_torch.destinations import KERNEL_DESTINATIONS
+from raytrace_tpu_torch.ops.diff import (
+    chaos_weight,
+    emissivity_binned_profile,
+    emissivity_gradient_pipeline,
+    emissivity_observable_from_angles,
+    launch_turning_scores,
+    line_profile_from_xy,
+    line_profile_observable,
+    separatrix_score,
+    smooth_radial_observable,
+    trace_scan,
+)
 from raytrace_tpu_torch.ops.integrate import RK45_STEPLIM, STEPLIM, StepControl, trace
 from raytrace_tpu_torch.ops.march_kernel import trace_kernel
 from raytrace_tpu_torch.ops.reductions import radial_bin_profile
@@ -61,11 +74,21 @@ __all__ = [
     "RK45_STEPLIM",
     "STEPLIM",
     "StepControl",
+    "chaos_weight",
+    "emissivity_binned_profile",
+    "emissivity_gradient_pipeline",
+    "emissivity_observable_from_angles",
     "kernel_steplim",
     "kernel_supported",
+    "launch_turning_scores",
+    "line_profile_from_xy",
+    "line_profile_observable",
     "radial_bin_profile",
     "routes",
+    "separatrix_score",
+    "smooth_radial_observable",
     "trace",
     "trace_auto",
     "trace_kernel",
+    "trace_scan",
 ]

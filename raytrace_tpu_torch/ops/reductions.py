@@ -19,7 +19,8 @@ def radial_bin_index(r, r_min, dr, n_bins, logbin: bool):
     """Bin index under the reference convention (emissivity.cpp:59,105):
     log bins floor(log(r/r_min)/log(dr)), linear floor((r - r_min)/dr)."""
     if logbin:
-        ir = torch.floor(torch.log(r / r_min) / math.log(dr))
+        log_dr = torch.log(dr) if isinstance(dr, torch.Tensor) else math.log(dr)
+        ir = torch.floor(torch.log(r / r_min) / log_dr)
     else:
         ir = torch.floor((r - r_min) / dr)
     in_range = (ir >= 0) & (ir < n_bins)
@@ -29,16 +30,20 @@ def radial_bin_index(r, r_min, dr, n_bins, logbin: bool):
 def bin_edges(r_min, r_max, n_bins, logbin: bool, *, device, dtype=torch.float64):
     """Left edges, widths and step (emissivity.cpp:59,78): log bins
     r_i = r_min * dr^i with dr = exp(log(r_max/r_min)/Nr); linear
-    r_i = r_min + i*dr."""
+    r_i = r_min + i*dr. ``r_min`` may be a tensor (the ISCO of a spin that
+    carries a gradient); then ``dr`` is one too."""
     i = torch.arange(n_bins, dtype=dtype, device=device)
     if logbin:
-        dr = math.exp(math.log(r_max / r_min) / n_bins)
+        if isinstance(r_min, torch.Tensor):
+            dr = torch.exp(torch.log(torch.full_like(r_min, r_max) / r_min) / n_bins)
+        else:
+            dr = math.exp(math.log(r_max / r_min) / n_bins)
         r = r_min * dr**i
         width = r * dr - r
     else:
         dr = (r_max - r_min) / n_bins
         r = r_min + i * dr
-        width = torch.full_like(r, dr)
+        width = torch.full_like(r, dr) if not isinstance(dr, torch.Tensor) else dr.expand_as(r)
     return r, width, dr
 
 

@@ -113,6 +113,13 @@ def _seeded_batch(x, y, dist, incl_deg, spin, phi0, *, device, dtype, work_dtype
         x, y, torch.tensor(float(dist), dtype=f64), deg * torch.pi / 180.0,
         torch.tensor(float(phi0), dtype=f64), -float(spin), torch.finfo(work_dtype).eps,
     )
+    return _batch_from_parts(parts, x, y, device=device, dtype=dtype)
+
+
+def _batch_from_parts(parts, x, y, *, device, dtype) -> RayBatch:
+    """Assemble a live batch on ``device`` from _plane_ray's parts, rounding
+    every field once to ``dtype`` (a no-op for the all-traced construction,
+    whose parts are already there and keep their graph)."""
     t, r, theta, phi, mom, consts, rdot_sign, thetadot_sign = parts
     c = lambda v: v.to(device=device, dtype=dtype)
     n = x.shape[0]
@@ -125,6 +132,19 @@ def _seeded_batch(x, y, dist, incl_deg, spin, phi0, *, device, dtype, work_dtype
         steps=torch.zeros(n, dtype=torch.int32, device=device),
         alpha=c(x), beta=c(y),
     )
+
+
+def _traced_batch(x, y, dist, incl_deg, spin, phi0) -> RayBatch:
+    """The all-traced construction (the JAX image_plane under a traced
+    parameter): _plane_ray in the dtype of the plane points (x, y) on their
+    device, with ``spin`` and ``incl_deg`` as given, so their gradients
+    reach every field. The knife-edge floor takes that dtype's epsilon."""
+    as_t = lambda v: (v.to(device=x.device, dtype=x.dtype) if isinstance(v, torch.Tensor)
+                      else torch.tensor(float(v), dtype=x.dtype, device=x.device))
+    a_trace = -(spin.to(x.device) if isinstance(spin, torch.Tensor) else float(spin))
+    parts = _plane_ray(x, y, as_t(dist), as_t(incl_deg) * torch.pi / 180.0, as_t(phi0),
+                       a_trace, torch.finfo(x.dtype).eps)
+    return _batch_from_parts(parts, x, y, device=x.device, dtype=x.dtype)
 
 
 def image_plane(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, *, device,
@@ -140,7 +160,13 @@ def image_plane(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, *, device,
     ``dtype``): its epsilon sets the knife-edge floor of the polar impact
     parameter, so a float64 batch that ``trace_auto`` marches in float32 on
     a card passes ``work_dtype=torch.float32``.
+
+    A tensor ``spin`` or ``incl_deg`` (a parameter under autograd) takes the
+    all-traced construction instead: every field computed in ``dtype`` on
+    ``device``, differentiable in both; ``work_dtype`` is then ``dtype``.
     """
+    if isinstance(spin, torch.Tensor) or isinstance(incl_deg, torch.Tensor):
+        return _traced_batch(*grid.xy(device=device, dtype=dtype), dist, incl_deg, spin, phi0)
     work_dtype = dtype if work_dtype is None else work_dtype
     x, y = grid.xy(dtype=torch.float64)
     return _seeded_batch(x, y, dist, incl_deg, spin, phi0, device=device, dtype=dtype,

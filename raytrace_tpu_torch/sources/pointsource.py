@@ -63,12 +63,17 @@ def grid_angles(grid: PointSourceGrid, *, device, dtype=torch.float64):
 def point_source_from_angles(pos, V, spin, cosalpha, beta, dead=None, E=1.0) -> RayBatch:
     """Lamppost batch from explicit per-ray emission angles; ``dead`` rows
     get steps = -1 (pointsource.cpp:30-64). Dtype and device are those of
-    ``cosalpha``."""
+    ``cosalpha``; entries of ``pos`` may be tensors, whose gradients the
+    batch carries."""
     if dead is None:
         dead = torch.zeros_like(cosalpha, dtype=torch.bool)
     alpha = torch.arccos(torch.clamp(cosalpha, -1.0, 1.0))
-    t0, r0, th0, ph0 = (float(p) for p in pos)
-    full = lambda v: torch.full_like(cosalpha, v)
+    t0, r0, th0, ph0 = (p if isinstance(p, torch.Tensor) else float(p) for p in pos)
+
+    def full(v):  # a tensor entry keeps its graph (the source height under autograd)
+        if isinstance(v, torch.Tensor):
+            return v.to(cosalpha.device) * torch.ones_like(cosalpha)
+        return torch.full_like(cosalpha, v)
 
     r = full(r0)
     theta = full(th0)
