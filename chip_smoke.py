@@ -136,7 +136,35 @@ script exits non-zero:
      d. line_profile_observable on the 89 x 89 dense grid (dist 100, incl
         55, r_disc 15, 2048 iterations): the gradient of the profile's sum
         in (spin, incl), reverse against forward mode to rtol 1e-10;
-     the phase's numbers on one line, {"gradients": {...}}.
+     the phase's numbers on one line, {"gradients": {...}}; 19a's row times
+     the kernel's launch alone (launch_ms), best of 3 after a warm-up, its
+     march being short enough for prepare's casts to swamp it;
+ 20. resume, progress, checkpoints and sharding (resume_shard_phases):
+     a. trace_kernel_phased (phase_iters 2048) against one trace_kernel
+        launch on the emissivity par file's batch (rk4 bit for bit; rk45
+        rays that differ counted), its launches and overhead; then the
+        phased kernel against the phased plain march (trace_compacted,
+        progress=True) on the bench grid at STUCK_STEPLIM, bit for bit;
+     b. rk4 f32 on the bench grid: 150 iterations, save_rays, load_rays
+        onto the card, resume = the uninterrupted march bit for bit;
+     c. the emissivity CLI with --show_progress=1 and RT_PROFILE in a
+        subprocess: the phase line and the bar on stderr, a Chrome trace
+        naming the march kernel once a phase, the device's idle share over
+        the march+bin phase (device_idle), the output equal to the run
+        without the key;
+     d. a world of one over NCCL in this process: apps.emissivity.compute
+        over the mesh against without it (a world of one with no group;
+        both timed with the card to themselves), sharded_caustic_trace on
+        phase 10's plane bundles against trace_auto, and the dry-run case
+        (dryrun_case, __graft_entry__.py's sizes) with the gradient against
+        MULTICHIP_r05.json's pins to rtol 1e-8;
+     e. after the timed turns, 2 gloo ranks on the card run dryrun_case
+        (multiprocess_check.launch) beside the rest of d: traces and
+        gathered bundles bit for bit the world of one's, sums and gradients
+        to rtol 1e-12;
+     f. started with e, multiprocess_check (one NCCL process, 384
+        iterations), then scaling_bench: their JSON, one line each;
+     the phase's numbers on one line, {"resume_and_shards": {...}}.
 A main path's batch is held against the plain march in full
 (hold_full_width): at kernel_steplim where no ray sticks, otherwise at
 STUCK_STEPLIM, so that every ray, stuck or not, is compared over its
@@ -144,8 +172,8 @@ first STUCK_STEPLIM steps, the kernel under the launcher's schedule and,
 where that is the lane-refill schedule, bitwise the grid launch's. On the
 card the plain march replays each compaction epoch's iteration as a CUDA
 graph (ops/integrate.py).
-The last three lines are phase 19's record, the per-kernel JSON record and
-the device record.
+The last lines are phase 19's record, phase 20's, the per-kernel JSON
+record and the device record.
 A record's ms is its main path's batch at the CLI's steplim under the
 schedule the launcher gives it; bound_ms the largest of its issue times
 (each pipe's instructions, and all of them, over the card's rates; see
@@ -153,7 +181,8 @@ SASS_PIPES) and its bytes over the memory rate, bound_by "operations" or
 "bytes" (as every record of the line has them) and bound_pipe the binding
 one; issue_per_step the least that one full loop iteration issues by pipe,
 on which the bound stands, and issue_per_step_most the most (loop_issue);
-latency_bound_ms the longest ray's steps times one step's latency;
+latency_bound_ms the longest ray's steps times one step's latency; a
+record's launches include phase 20's (phased, sharded and CLI runs);
 rk45 x theta f32 also reject_share and bound_ms_with_trials (phase 18).
 """
 
@@ -161,6 +190,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -1059,6 +1089,35 @@ def step_latency_us(rays, spin, out, schedule, kw, torch):
     return ((ms[1] - ms[0]) * 1e3 / half if ms[1] > ms[0] else None), n_steps
 
 
+def launch_ms(rays, spin, kw, schedule, torch, repeats=3):
+    """The march kernel's launch alone on ``rays`` (``kw`` holds method,
+    steplim and march_dtype, and any of dest, r_max, ctrl and boundary):
+    CUDA events around ``_launch`` on prepared buffers, restored from a
+    copy before each launch outside the events, best of ``repeats`` after a
+    warm-up."""
+    from raytrace_tpu_torch.ops import march_kernel
+    from raytrace_tpu_torch.ops.integrate import StepControl
+
+    args = dict(dest=None, r_max=1000.0, ctrl=StepControl(), boundary=None)
+    args.update((k, v) for k, v in kw.items() if k in args)
+    _, _, buf, scalars = march_kernel.prepare(rays, spin, method=kw["method"],
+                                              steplim=kw["steplim"],
+                                              march_dtype=kw["march_dtype"], **args)
+    fresh = {f: b.clone() for f, b in buf.items()}
+    best = float("inf")
+    for i in range(repeats + 1):
+        for f, b in buf.items():
+            b.copy_(fresh[f])
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        march_kernel._launch(buf, scalars, schedule)
+        stop.record()
+        torch.cuda.synchronize()
+        if i:
+            best = min(best, start.elapsed_time(stop))
+    return best
+
+
 def time_schedules(path, variant, rays, spin, kw, method, dtype, torch, steplim=None):
     """Phase 13 on one main path's full-width batch at its CLI's steplim
     (or ``steplim``; phase 19 times its batch at trace_scan's budget):
@@ -1145,7 +1204,7 @@ def slice_batch(kind):
 
 
 class Recorder:
-    """Wraps an app module's ``trace_auto`` (or its function ``name``) while
+    """Wraps a module's ``trace_auto`` (or its function ``name``) while
     in use, recording what its last call marched and how (rays, spin,
     keywords and result), the milliseconds all its calls took on the card
     (CUDA events around each call, synchronised after it, as the app
@@ -1594,7 +1653,8 @@ def outflow_phases(launches, image_fits, torch):
                     ".fits" if entry == "main_pointsource_mapper" else ".dat"))
                 argv = [f"--outfile={outfile}"] + [a.format(lines=lines, image=image_fits)
                                                    for a in extra]
-                target = (importlib.import_module("raytrace_tpu_torch.apps.imageplane_disc_image")
+                # the disc-image compute marches through the sharded layer
+                target = (importlib.import_module("raytrace_tpu_torch.parallel.sharding")
                           if tag == "line profile" else app)
                 rec = Recorder(target, march) if march else contextlib.nullcontext()
                 march_kernel.launches = 0
@@ -1863,6 +1923,14 @@ def gradient_phases(launches, torch):
         check(p["ok"], f"19a parity: {p}")
         timed = time_schedules("gradients", "rk4_theta_f64", rays, SPIN, kw, "rk4", f64, torch,
                                steplim=n_steps + 1)
+        # the row's ms: the launch alone, as short a march as this one is
+        # otherwise swamped by prepare's casts and allocations in the events
+        with_prepare = timed["ms"]
+        timed["ms"] = launch_ms(rays, SPIN, dict(kw, method="rk4", steplim=n_steps + 1,
+                                                 march_dtype=f64), "grid", torch)
+        print(f"19a: the rk4 x theta f64 launch alone {timed['ms']:.3f} ms (best of 3 after a "
+              f"warm-up; with prepare and finish {with_prepare:.3f} ms), bound "
+              f"{timed['bound_ms']:.4f} ms: {timed['ms'] / timed['bound_ms']:.3f}x")
         nums["19a"] = dict(rays=rays.n_rays, ended=int(ended.sum()), gaps=gaps,
                            trace_scan_s=scan_s, kernel_ms=timed["ms"])
         held = (p, (scan_s * 1e3, n_steps + 1))
@@ -1996,6 +2064,372 @@ def gradient_phases(launches, torch):
     return held, timed, nums
 
 
+def device_idle(trace_path):
+    """From a torch.profiler Chrome trace: the span of the recorded section
+    (first event's start to last event's end, host and card), the card's
+    busy time in it (the union of its kernels, copies and sets) and the
+    idle share, and the march kernel's events and time."""
+    events = [e for e in json.loads(Path(trace_path).read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    start = min(float(e["ts"]) for e in events)
+    end = max(float(e["ts"]) + float(e["dur"]) for e in events)
+    gpu = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, reach = 0.0, start
+    for a, b in gpu:
+        a = max(a, reach)
+        if b > a:
+            busy += b - a
+            reach = b
+    march = [e for e in events if e.get("cat") == "kernel" and "march_kernel" in e["name"]]
+    return dict(span_ms=(end - start) / 1e3, busy_ms=busy / 1e3,
+                idle_share=1.0 - busy / (end - start), device_events=len(gpu),
+                march_kernels=len(march), march_ms=sum(float(e["dur"]) for e in march) / 1e3,
+                march_name=march[0]["name"] if march else None)
+
+
+def counted(fn, tallies, variant):
+    """fn(), its kernel launches added to ``tallies[variant]``."""
+    from raytrace_tpu_torch.ops import march_kernel
+
+    before = march_kernel.launches
+    out = fn()
+    tallies[variant] = tallies.get(variant, 0) + march_kernel.launches - before
+    return out
+
+
+def dryrun_case(mesh):
+    """Phase 20e's sharded functions at the dry-run sizes of
+    __graft_entry__.py:64-160 on ``mesh`` (a multiprocess_check.launch
+    target, and phase 20d's world of one): sharded_trace of the padded 0.25
+    lamppost grid (rk4, r_max 50, steplim 256; this rank's shard),
+    sharded_emissivity_bins (rk4 and rk45, steplim 2048, 16 bins out to r
+    50), sharded_caustic_trace of the 5 x 5 bundles (dist 100, incl 30, r_max
+    110, steplim 20000; full width), and multiprocess_check.check_case (the
+    gradient at 1024 iterations, which MULTICHIP_r05.json's pins need, and
+    the fit step at multiprocess_check's 384). Returns arrays, and the
+    kernel launches by variant."""
+    import torch
+
+    from raytrace_tpu_torch.destinations import ThetaLimit
+    from raytrace_tpu_torch.ops.reductions import bin_edges
+    from raytrace_tpu_torch.parallel import (pad_rays, shard_rays, sharded_caustic_trace,
+                                             sharded_emissivity_bins, sharded_trace)
+    from raytrace_tpu_torch.parallel.multiprocess_check import check_case
+    from raytrace_tpu_torch.sources import (ImagePlaneGrid, PointSourceGrid, image_plane_bundles,
+                                            point_source)
+
+    tallies, out = {}, {}
+    grid = PointSourceGrid.from_steps(0.25, 0.25, -0.9, 0.9, -3.0, 3.0)
+    rays = point_source((0.0, 5.0, 1e-3, 0.0), 0.0, SPIN, grid, device=mesh.device)
+    shard = shard_rays(pad_rays(rays, mesh.size), mesh)
+    traced = counted(lambda: sharded_trace(shard, SPIN, mesh, method="rk4", r_max=50.0,
+                                           steplim=256), tallies, "rk4_theta")
+    out.update({f"trace_{f}": getattr(traced, f) for f in traced.__dataclass_fields__})
+    _, _, dr = bin_edges(1.3, 50.0, 16, True, device="cpu")
+    for method in ("rk4", "rk45"):
+        counts, sums = counted(lambda: sharded_emissivity_bins(
+            shard, SPIN, mesh, r_min=1.3, dr=float(dr), n_r=16, n_primary=float(grid.n_rays),
+            method=method, r_max=50.0, steplim=2048), tallies, f"{method}_theta")
+        out[f"bins_{method}"] = torch.stack([counts, *sums.values()])
+    bundles, _ = image_plane_bundles(100.0, 30.0, ImagePlaneGrid.from_steps(-8.0, 8.0, 4.0, -8.0,
+                                                                             8.0, 4.0),
+                                     SPIN, eps_frac=0.01, device=mesh.device)
+    caustic = counted(lambda: sharded_caustic_trace(bundles, -SPIN, mesh,
+                                                    dest=ThetaLimit(math.pi / 2), r_max=110.0,
+                                                    steplim=20000), tallies, "rk45_theta")
+    out.update({f"caustic_{f}": getattr(caustic, f) for f in caustic.__dataclass_fields__})
+    case = check_case(mesh, fit_steps=384)
+    out["grad"] = [case["value"], *case["grads"]]
+    out["fit"] = [case["fit_loss"], *case["fit_grads"]]
+    out.update({f"launches_{k}": v for k, v in tallies.items()})
+    return out
+
+
+def resume_shard_phases(launches, torch):
+    """Phase 20: the resumable march, checkpoints, progress and profiling,
+    and the sharded layer over torch.distributed. Adds this phase's kernel
+    launches to ``launches`` by variant; returns its numbers."""
+    import os
+    import socket
+    import threading
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from raytrace_tpu_torch.apps import emissivity
+    from raytrace_tpu_torch.config import Config
+    from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, trace_auto, trace_compacted
+    from raytrace_tpu_torch.parallel import make_ray_mesh, sharded_caustic_trace
+    from raytrace_tpu_torch.parallel.multiprocess_check import launch
+    from raytrace_tpu_torch.rays import RAY_STATUS_STEPLIM
+    from raytrace_tpu_torch.sources import PointSourceGrid
+    from raytrace_tpu_torch.utils import load_rays, save_rays
+
+    nums = {"card": smi_line()}
+    par = emissivity.compute_args(Config([f"--parfile={PARFILE}"]))
+    bench_grid = PointSourceGrid.from_steps(0.01, 0.01)
+
+    def walled(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(stop), (time.perf_counter() - t0) * 1e3
+
+    with Phase("20a resume: phased kernel march at full width"):
+        rays = lamppost(par["grid"], torch.float32, spin=par["spin"], source=par["source"],
+                        V=par["V"])
+        nums["20a"] = {}
+        for method in ("rk4", "rk45"):
+            kw = dict(method=method, steplim=kernel_steplim(method))
+            single, one_ms, one_wall = walled(lambda: march_kernel.trace_kernel(rays, par["spin"],
+                                                                             **kw))
+            march_kernel.launches = 0
+            phased, ph_ms, ph_wall = walled(lambda: march_kernel.trace_kernel_phased(
+                rays, par["spin"], phase_iters=2048, **kw))
+            n_launch = march_kernel.launches
+            launches[f"{method}_theta"] += n_launch
+            diff = same_bits(phased, single, torch)
+            moved = torch.zeros(rays.n_rays, dtype=torch.bool, device="cuda")
+            for f in march_kernel.F_FIELDS + march_kernel.I_FIELDS + march_kernel.B_FIELDS:
+                a, b = getattr(phased, f), getattr(single, f)
+                moved |= ~((a == b) | (a.isnan() & b.isnan())) if a.is_floating_point() else a != b
+            rel = ((phased.r.double() - single.r.double()).abs() / single.r.double().abs())[moved]
+            rec = dict(rays=rays.n_rays, launches=n_launch, one_ms=one_ms, phased_ms=ph_ms,
+                       overhead_ms=ph_ms - one_ms, one_wall_ms=one_wall, phased_wall_ms=ph_wall,
+                       fields_differing=diff, rays_differing=int(moved.sum()),
+                       max_rel_dr=float(rel.max()) if rel.numel() else 0.0,
+                       steplim=kw["steplim"], max_steps=int(single.steps.abs().max()))
+            nums["20a"][method] = rec
+            print(f"20a {method} x theta f32: {rays.n_rays} rays, steplim {kw['steplim']}, "
+                  f"longest ray {rec['max_steps']} steps; one launch {one_ms:.3f} ms (CUDA events), "
+                  f"phased (phase_iters 2048) {n_launch} launches {ph_ms:.3f} ms, overhead "
+                  f"{ph_ms - one_ms:.3f} ms (host walls {one_wall:.3f} / {ph_wall:.3f} ms); "
+                  f"{rec['rays_differing']} rays differ from the one launch in {diff}, max "
+                  f"|dr|/r {rec['max_rel_dr']:.3e}")
+            check(n_launch >= 1, f"20a {method}: the phased march never launched the kernel")
+            if method == "rk4":
+                check(not diff, f"20a rk4: phased and one launch differ in {diff}")
+        del rays, single, phased
+        # the RK45 gate: the phased kernel against the phased plain march over
+        # the same boundaries, on the bench grid at STUCK_STEPLIM
+        bench = lamppost(bench_grid, torch.float32)
+        kw = dict(method="rk45", steplim=STUCK_STEPLIM)
+        march_kernel.launches = 0
+        pk = march_kernel.trace_kernel_phased(bench, SPIN, phase_iters=2048, **kw)
+        launches["rk45_theta"] += march_kernel.launches
+        (pp, pp_ms, _) = walled(lambda: trace_compacted(bench, SPIN, progress=True,
+                                                         phase_iters=2048, **kw))
+        diff = same_bits(pk, pp, torch)
+        stuck = int(((pk.status & RAY_STATUS_STEPLIM) != 0).sum())
+        print(f"20a rk45 gate: phased kernel against the phased plain march on the bench grid "
+              f"({bench.n_rays} rays, steplim {STUCK_STEPLIM}, {stuck} stuck): differ in {diff} "
+              f"(plain {pp_ms:.1f} ms)")
+        check(not diff, f"20a rk45: phased kernel and phased plain march differ in {diff}")
+        nums["20a"]["rk45_gate"] = dict(rays=bench.n_rays, fields_differing=diff, stuck=stuck)
+
+    with Phase("20b resume: checkpoint on the card"):
+        kw = dict(method="rk4", steplim=kernel_steplim("rk4"))
+        full = march_kernel.trace_kernel(bench, SPIN, **kw)
+        march_kernel.launches = 0
+        part = march_kernel.trace_kernel(bench, SPIN, max_iters=150, refine_crossing=False, **kw)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "rays.npz")
+            t0 = time.perf_counter()
+            save_rays(path, part, spin=SPIN, iterations=150)
+            loaded, meta = load_rays(path, device="cuda")
+            io_s = time.perf_counter() - t0
+        out = march_kernel.trace_kernel(loaded, SPIN, resume=True, **kw)
+        launches["rk4_theta"] += march_kernel.launches
+        diff = same_bits(out, full, torch)
+        live = int(part.active.sum())
+        print(f"20b: rk4 f32 kernel, {bench.n_rays} rays: 150 iterations leave {live} active; "
+              f"save_rays and load_rays onto the card {io_s:.3f} s; resumed = uninterrupted "
+              f"{'bit for bit' if not diff else 'NOT bitwise: ' + str(diff)}")
+        check(live > 0 and float(meta["spin"]) == SPIN, "20b: nothing left to resume")
+        check(not diff, f"20b: resumed and uninterrupted differ in {diff}")
+        nums["20b"] = dict(rays=bench.n_rays, active_at_150=live, io_s=io_s)
+        del full, part, loaded, out
+
+    with Phase("20c resume: show_progress and RT_PROFILE through the CLI"), \
+            tempfile.TemporaryDirectory() as tmp:
+        prof, on, off = Path(tmp) / "prof", Path(tmp) / "on.dat", Path(tmp) / "off.dat"
+        env = dict(os.environ, RT_PROFILE=str(prof))
+        env.pop("RT_PROGRESS", None)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "raytrace_tpu_torch.apps.emissivity", f"--parfile={PARFILE}",
+             f"--outfile={on}", "--show_progress=1"], cwd=ROOT, env=env, capture_output=True,
+            text=True, timeout=600)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"20c: the CLI failed:\n{proc.stderr[-3000:]}")
+        bars = [ln for ln in proc.stderr.splitlines() if ln.startswith("march[rk45]")]
+        phases = sum(ln.endswith(" live]") for ln in bars)
+        launches["rk45_theta"] += phases
+        check("[emissivity plain march+bin] ..." in proc.stderr and phases > 0,
+              f"20c: no phase line or bar on stderr:\n{proc.stderr[-2000:]}")
+        traces = list(prof.rglob("*.json"))
+        check(len(traces) == 1, f"20c: profile directory holds {traces}")
+        idle = device_idle(traces[0])
+        check(idle["march_kernels"] == phases,
+              f"20c: the trace names {idle['march_kernels']} march kernels for {phases} phases")
+        check("RT_PROGRESS" not in os.environ, "20c: RT_PROGRESS is set in this process")
+        check(emissivity.main([f"--parfile={PARFILE}", f"--outfile={off}"]) == 0,
+              "20c: the run without the key failed")
+        a, b = np.loadtxt(on), np.loadtxt(off)
+        same_cols = [i for i in range(7) if np.array_equal(a[:, i], b[:, i], equal_nan=True)]
+        check(a.shape == b.shape == (100, 7) and np.array_equal(a[:, :3], b[:, :3]),
+              "20c: bins, areas or counts differ with show_progress")
+        check(np.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True),
+              "20c: the columns differ beyond the atomics' reassociation")
+        print(f"20c: emissivity CLI --show_progress=1 RT_PROFILE: exit 0 in {cli_s:.3f} s, "
+              f"{len(bars)} bar lines, {phases} phases (launches); trace {traces[0].name} names "
+              f"{idle['march_name']!r} {idle['march_kernels']} times ({idle['march_ms']:.3f} ms); "
+              f"the march+bin phase spans {idle['span_ms']:.3f} ms, the card busy "
+              f"{idle['busy_ms']:.3f} ms over {idle['device_events']} events: idle share "
+              f"{idle['idle_share']:.4f}; output columns bitwise the run without the key: "
+              f"{same_cols} (the rest within rtol 1e-12: index_add_ adds float64 in any order)")
+        nums["20c"] = dict(cli_s=cli_s, phases=phases, bitwise_columns=same_cols, **idle)
+
+    with Phase("20d shard: world of one over NCCL, in process"):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                                rank=0)
+        background, gloo, mpc = {}, None, None
+
+        def ranks():
+            try:
+                background["ranks"] = launch("chip_smoke:dryrun_case", 2, device="cuda",
+                                             backend="gloo")
+            except Exception as e:  # reported by the phase below, which raises
+                background["error"] = e
+
+        try:
+            mesh = make_ray_mesh()
+            check(mesh.size == 1 and mesh.device == torch.device("cuda", 0), f"20d: {mesh}")
+            # NCCL sets its communicator up at the first collective: apart
+            _, init_ms, _ = walled(lambda: dist.all_reduce(torch.zeros(1, device="cuda")))
+            # timed alone on the card, before the ranks below start: compute
+            # over the NCCL mesh, and without a mesh (a world of one with no
+            # group, which calls no collective): the same sharded path
+            runs = {"sharded": [], "unsharded": []}
+            for which in ("sharded", "unsharded", "unsharded", "sharded"):
+                march_kernel.launches = 0
+                out, ms, wall = walled(lambda: emissivity.compute(
+                    **par, mesh=mesh if which == "sharded" else None))
+                check(march_kernel.launches == 1, f"20d: {which} compute did not launch once")
+                if which == "sharded":
+                    launches["rk45_theta"] += march_kernel.launches
+                    shard_out = out
+                else:
+                    plain_out = out
+                runs[which].append((ms, wall))
+            (shard_ms, shard_wall), (plain_ms, plain_wall) = (min(runs[k]) for k in runs)
+            for k in ("r", "area", "rays"):
+                check(np.array_equal(shard_out[k], plain_out[k]), f"20d: {k} differs")
+            bitwise = [k for k in shard_out
+                       if np.array_equal(shard_out[k], plain_out[k], equal_nan=True)]
+            for k in ("flux", "emis", "redshift", "time"):
+                check(np.allclose(shard_out[k], plain_out[k], rtol=1e-12, equal_nan=True),
+                      f"20d: {k} differs beyond the atomics' reassociation")
+            print(f"20d: emissivity compute over a world of one (NCCL; its first all_reduce "
+                  f"{init_ms:.3f} ms) on the par file's {par['grid'].n_rays} rays, in turns, "
+                  f"the card to itself (mesh, no mesh, no mesh, mesh; CUDA events, host walls): "
+                  f"NCCL mesh {runs['sharded']} ms, no mesh {runs['unsharded']} ms; bitwise "
+                  f"columns {bitwise}, the rest within rtol 1e-12")
+            # the 2 gloo ranks (20e) and multiprocess_check (20f) share the
+            # card with the rest of this phase from here on
+            gloo = threading.Thread(target=ranks)
+            gloo.start()
+            mpc_out = Path(tempfile.mkdtemp()) / "mpc.json"
+            mpc = subprocess.Popen([sys.executable, "-m",
+                                    "raytrace_tpu_torch.parallel.multiprocess_check",
+                                    str(mpc_out), "--n_steps", "384"], cwd=ROOT,
+                                   stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            rays, spin, ckw = caustic_batch("plane", torch.float64)
+            ckw = dict(ckw, method="rk45", steplim=kernel_steplim("rk45"),
+                       march_dtype=torch.float64)
+            march_kernel.launches = 0
+            sc = sharded_caustic_trace(rays, spin, mesh, **ckw)
+            launches["rk45_plane_f64"] += march_kernel.launches
+            diff = same_bits(sc, trace_auto(rays, spin, **ckw), torch)
+            check(not diff, f"20d: sharded_caustic_trace and trace_auto differ in {diff}")
+            print(f"20d: sharded_caustic_trace on the plane golden's {rays.n_rays} bundle rays "
+                  f"(rk45 f64) = trace_auto bit for bit")
+            t0 = time.perf_counter()
+            world1 = dryrun_case(mesh)
+            case_s = time.perf_counter() - t0
+            for k in [k for k in world1 if k.startswith("launches_")]:
+                launches[k[len("launches_"):]] += world1.pop(k)
+            pins = [31.0060045484864, 76.33067409568959, 35.020458010357046, 5.64657169302714]
+            rtol = [abs(a - b) / abs(b) for a, b in zip(world1["grad"], pins)]
+            print(f"20d: sharded_emissivity_gradient (dry run: 0.25 grid, 1024 iterations) value "
+                  f"and d/d(spin, h, gamma) {world1['grad']} against MULTICHIP_r05.json's "
+                  f"{pins}: rtol {rtol}; the dry-run case in {case_s:.3f} s (the card "
+                  f"shared with the 2 gloo ranks and multiprocess_check)")
+            check(max(rtol) <= 1e-8, f"20d: gradient pins off by {rtol}")
+            nums["20d"] = dict(nccl_first_all_reduce_ms=init_ms, turns=runs,
+                               sharded_ms=shard_ms, sharded_wall_ms=shard_wall,
+                               unsharded_ms=plain_ms, unsharded_wall_ms=plain_wall,
+                               bitwise_columns=bitwise, grad=world1["grad"], pin_rtol=rtol,
+                               dryrun_case_s=case_s)
+        finally:
+            if gloo is not None:
+                gloo.join()
+            mpc_log = mpc.communicate()[0] if mpc is not None else ""
+            dist.destroy_process_group()
+
+    with Phase("20e shard: two gloo ranks on the card"):
+        check("error" not in background, f"20e: the ranks failed: {background.get('error')}")
+        ranks = background["ranks"]
+        host = lambda v: np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
+        world1 = {k: host(v) for k, v in world1.items()}
+        for k in [k for k in ranks[0] if k.startswith("launches_")]:
+            launches[k[len("launches_"):]] += int(sum(r[k] for r in ranks))
+        # the ranks' shards end to end are the world of one's batch (200
+        # rays: no padding for 2), bit for bit
+        for f in (k for k in world1 if k.startswith("trace_")):
+            got = np.concatenate([r[f] for r in ranks])
+            check(np.array_equal(got, world1[f], equal_nan=True), f"20e: {f} differs")
+        gaps = {}
+        for r in ranks:
+            for f in (k for k in world1 if k.startswith("caustic_")):
+                check(np.array_equal(r[f], world1[f], equal_nan=True), f"20e: {f} differs")
+            for k in ("bins_rk4", "bins_rk45", "grad", "fit"):
+                if k.startswith("bins"):
+                    check(np.array_equal(r[k][0], world1[k][0]), f"20e: {k} counts differ")
+                rel = np.abs(r[k] - world1[k]) / np.maximum(np.abs(world1[k]), 1e-300)
+                gaps[k] = max(gaps.get(k, 0.0), float(np.nanmax(rel)))
+        print(f"20e: 2 gloo ranks on one card: traces and gathered bundles bit for bit the world "
+              f"of one's, bin counts equal; largest relative gap of the merged sums and "
+              f"gradients {gaps}")
+        check(all(g <= 1e-12 for g in gaps.values()), f"20e: sums or gradients off: {gaps}")
+        nums["20e"] = dict(rel_gaps=gaps)
+
+    with Phase("20f shard: multiprocess_check and scaling_bench"):
+        check(mpc.returncode == 0, f"20f: multiprocess_check failed:\n{mpc_log[-3000:]}")
+        record = json.loads(mpc_out.read_text())
+        print(json.dumps({"multiprocess_check": record}))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "raytrace_tpu_torch.parallel.scaling_bench"],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"20f: scaling_bench failed:\n{proc.stderr[-3000:]}")
+        lines = proc.stdout.strip().splitlines()
+        scaling = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        print(json.dumps({"scaling_bench": scaling, "note": [ln for ln in lines
+                                                             if not ln.startswith("{")]}))
+        check(scaling and scaling[0]["binned"] > 0, "20f: scaling_bench binned nothing")
+        nums["20f"] = dict(multiprocess_check=record, scaling=scaling,
+                           scaling_s=time.perf_counter() - t0)
+    return nums
+
+
 def main() -> int:
     import torch
 
@@ -2013,6 +2447,7 @@ def main() -> int:
     from raytrace_tpu_torch.destinations import SphericalShell
     from raytrace_tpu_torch.io import read_fits
     from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, trace, trace_auto
+    from raytrace_tpu_torch.parallel import sharding
     from raytrace_tpu_torch.sources import ImagePlaneGrid, PointSourceGrid
 
     # lives until the script ends: phase 8 writes the disc image phase 17 folds
@@ -2275,6 +2710,12 @@ def main() -> int:
                   f"bound {b_ms:.4f} ms ({b_by})")
             check(p["ok"], f"parity gates failed for {tag}: {p}")
             small_timing[tag] = (k_ms, p_ms, b_ms, b_by)
+            if tag == "euler_plane_f32":  # its latency term, as phase 13 takes the others'
+                lat_us, longest = step_latency_us(rays, spin, a, "grid",
+                                                  dict(kw, march_dtype=dtype), torch)
+                print(f"latency term {tag}: lone-ray step latency "
+                      + (f"{lat_us:.4f} us x {longest} steps = {longest * lat_us / 1e3:.4f} ms"
+                         if lat_us else f"not resolved over the longest ray's {longest} steps"))
         del rays, a, b
 
     with Phase("11 caustic goldens"):
@@ -2304,7 +2745,8 @@ def main() -> int:
 
     runs = {}
     with Phase("12 caustic full width"):
-        with Recorder(caustics) as rec, tempfile.TemporaryDirectory() as tmp:
+        # caustics.compute marches through the sharded layer's trace_auto
+        with Recorder(sharding) as rec, tempfile.TemporaryDirectory() as tmp:
             seen = rec.seen  # what the main path marched, and how
             for target, extra, variant in CAUSTIC_RUNS:
                 outfile = Path(tmp) / f"{variant}.fits"
@@ -2386,6 +2828,7 @@ def main() -> int:
     rejects = outflow_phases(launches, image_fits, torch)
     held["gradients", "rk4_theta_f64"], timed["gradients", "rk4_theta_f64"], grads = (
         gradient_phases(launches, torch))
+    resumed = resume_shard_phases(launches, torch)
 
     print(f"nvidia-smi: {smi_line()}")
     # (name, variant key, main path whose batch timed it)
@@ -2442,6 +2885,7 @@ def main() -> int:
           f"{rk45['bound_ms_with_trials']:.3f} ms ({over_trials:.3f}x): they explain "
           f"{(per_step - 1) / (over - 1):.1%} of the excess")
     print(json.dumps({"gradients": grads}))
+    print(json.dumps({"resume_and_shards": resumed}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name,
                                               "count": torch.cuda.device_count()}}))

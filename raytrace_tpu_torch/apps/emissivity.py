@@ -13,12 +13,17 @@ Output: 7 text columns (r, area, N_rays, flux, emis, <g>, <t>).
 
     python -m raytrace_tpu_torch.apps.emissivity --parfile=par_example/emissivity.par [--device=cuda|cpu]
 
-runs on the card unless ``--device=cpu`` is given.
+runs on the card unless ``--device=cpu`` is given. ``show_progress = 1``
+shows the march's progress (``RT_PROGRESS``); ``RT_PROFILE=<dir>`` records
+a profiler trace of the march and binning. Under ``torchrun`` with more
+than one rank the plain variant splits its rays over the ranks
+(``parallel.sharded_emissivity_bins``) and rank 0 writes the file.
 """
 
 from __future__ import annotations
 
 import math
+import os
 import sys
 
 import numpy as np
@@ -31,13 +36,11 @@ from raytrace_tpu_torch.geometry.kerr import bl_to_cartesian
 from raytrace_tpu_torch.io import TextOutput
 from raytrace_tpu_torch.ops import StepControl, trace_auto
 from raytrace_tpu_torch.ops.reductions import bin_edges, radial_bin_profile
-from raytrace_tpu_torch.ops.redshift import (
-    apply_redshift,
-    apply_redshift_dest,
-    range_phi,
-    redshift_start,
-)
+from raytrace_tpu_torch.ops.redshift import apply_redshift_dest, range_phi, redshift_start
+from raytrace_tpu_torch.parallel import (RayMesh, auto_mesh, pad_rays, shard_rays,
+                                         sharded_emissivity_bins)
 from raytrace_tpu_torch.sources import PointSourceGrid, point_source
+from raytrace_tpu_torch.utils import app_phase
 
 
 def disc_hit_mask(out, spin, r_isco=None):
@@ -79,13 +82,22 @@ def compute(
     theta_lim=math.pi / 2,
     *,
     device,
+    mesh=None,
 ):
     """Run the emissivity pipeline on ``device``; returns a dict of per-bin
     numpy columns. Sources, redshifts and bins are built in float64; the
     march goes through ``trace_auto``: the CUDA kernel in float32 for a
     CUDA device, the plain march (float64) otherwise. A CUDA device with
-    no card visible raises."""
-    device = require_device(device)
+    no card visible raises.
+
+    The plain variant marches and bins through
+    ``parallel.sharded_emissivity_bins``: with a ``mesh``
+    (``parallel.make_ray_mesh``) the batch is built on the mesh's device
+    and split over its ranks, each marches and bins its shard and one
+    ``all_reduce`` merges the bins, so every rank returns the same columns;
+    without one the process is a world of one on ``device``. The ``rd``
+    variant marches the whole batch on the mesh's device."""
+    device = require_device(device if mesh is None else mesh.device)
     r_isco = isco_radius(spin)
     if r_min is None or r_min < 0:
         r_min = float(r_isco)
@@ -101,29 +113,35 @@ def compute(
     )
 
     rays = point_source(source, V, spin, grid, device=device)
-    rays = redshift_start(rays, spin, V)
-    if variant == "rd":
+    if variant == "plain":
+        mesh = mesh or RayMesh(group=None, rank=0, size=1, device=device)
+        counts, sums = sharded_emissivity_bins(
+            shard_rays(pad_rays(rays, mesh.size), mesh), spin, mesh, V=V, r_min=r_min, dr=dr,
+            n_r=n_r, logbin_r=logbin_r, gamma=gamma, n_primary=n_primary, method=method,
+            r_max=r_max, steplim=steplim, ctrl=ctrl)
+    elif variant == "rd":
         # destination-API route (emissivity_rd.cpp:99-116): FlatDisc surface,
         # 4-velocity redshift, hit test on the landing polar angle
         dest = FlatDisc(theta_lim)
+        rays = redshift_start(rays, spin, V)
         rays = trace_auto(rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim,
                           ctrl=ctrl)
         rays = range_phi(rays)
         rays = apply_redshift_dest(rays, spin, dest)
         mask = (rays.ok & (rays.theta >= theta_lim - 1e-3) & (rays.redshift > 0)
                 & (rays.r >= r_isco))
-    elif variant == "plain":
-        rays = trace_auto(rays, spin, method=method, r_max=r_max, steplim=steplim, ctrl=ctrl)
-        rays = range_phi(rays)
-        rays = apply_redshift(rays, spin, V=-1.0)
-        mask = disc_hit_mask(rays, spin, r_isco)
+        counts, sums = radial_bin_profile(
+            rays.r, mask, emissivity_bin_weights(rays, gamma, n_primary),
+            r_min, dr, n_r, logbin_r,
+        )
     else:
         raise ValueError(f"unknown variant {variant!r}")
+    return _columns(disc_r, areas, counts, sums)
 
-    counts, sums = radial_bin_profile(
-        rays.r, mask, emissivity_bin_weights(rays, gamma, n_primary),
-        r_min, dr, n_r, logbin_r,
-    )
+
+def _columns(disc_r, areas, counts, sums) -> dict:
+    """The output columns from the bins' counts and sums: flux and emis
+    per unit area, redshift and time per ray."""
     counts_np = counts.cpu().numpy()
     sums = {k: v.cpu().numpy() for k, v in sums.items()}
     areas_np = areas.numpy()
@@ -190,15 +208,23 @@ def _main(variant):
         cfg = Config(argv)
         outfile = cfg.get("outfile", str)
         kw = compute_args(cfg, variant)
+        # reference par key (emissivity.par_example): the march's progress
+        if cfg.get("show_progress", bool, False):
+            os.environ.setdefault("RT_PROGRESS", "1")
         print(f"emissivity[{variant}]: spin={kw['spin']} source={kw['source']} "
               f"{kw['grid'].n_rays} rays on {kw['device']}")
-        out = compute(**kw)
-        with TextOutput(outfile) as f:
-            f.write_columns(
-                out["r"], out["area"], out["rays"], out["flux"], out["emis"],
-                out["redshift"], out["time"],
-            )
-        print(f"wrote {outfile}")
+        mesh = auto_mesh(kw["device"])
+        if mesh is not None and variant == "plain":
+            print(f"sharding {kw['grid'].n_rays} rays over {mesh.size} devices")
+        with app_phase(f"emissivity {variant} march+bin"):
+            out = compute(**kw, mesh=mesh)
+        if mesh is None or mesh.rank == 0:
+            with TextOutput(outfile) as f:
+                f.write_columns(
+                    out["r"], out["area"], out["rays"], out["flux"], out["emis"],
+                    out["redshift"], out["time"],
+                )
+            print(f"wrote {outfile}")
         return 0
 
     return main

@@ -2,6 +2,8 @@
 march kernel and its plain version, and the differentiable march and
 observables (``ops/diff.py``)."""
 
+import os
+
 import torch
 
 from raytrace_tpu_torch.destinations import KERNEL_DESTINATIONS
@@ -17,13 +19,21 @@ from raytrace_tpu_torch.ops.diff import (
     smooth_radial_observable,
     trace_scan,
 )
-from raytrace_tpu_torch.ops.integrate import RK45_STEPLIM, STEPLIM, StepControl, trace
-from raytrace_tpu_torch.ops.march_kernel import trace_kernel
+from raytrace_tpu_torch.ops.integrate import (
+    RK45_STEPLIM,
+    STEPLIM,
+    StepControl,
+    trace,
+    trace_compacted,
+)
+from raytrace_tpu_torch.ops.march_kernel import trace_kernel, trace_kernel_phased
 from raytrace_tpu_torch.ops.reductions import radial_bin_profile
 
-# trace_auto's routes so far, by name ("kernel" or "plain"): counted where
-# the route is taken, so a caller can see which engine marched a batch.
-routes = {"kernel": 0, "plain": 0}
+# trace_auto's routes so far, by name ("kernel" or "plain", and
+# "kernel_phased" or "plain_phased" when the march shows its progress):
+# counted where the route is taken, so a caller can see which engine
+# marched a batch.
+routes = {"kernel": 0, "kernel_phased": 0, "plain": 0, "plain_phased": 0}
 
 
 def kernel_supported(method="rk45", dest=None) -> bool:
@@ -43,12 +53,12 @@ def kernel_steplim(method, steplim=None) -> int:
     return steplim
 
 
-def trace_auto(rays, spin, march_dtype=None, **kw):
+def trace_auto(rays, spin, march_dtype=None, progress=None, **kw):
     """March on the batch's device: a CUDA batch towards a destination the
     kernel implements (``kernel_supported``) goes to the march kernel (with
     ``kernel_steplim``); any other batch, and a CUDA batch towards any
     other destination (``RadialVelocityField``), to the plain lock-step
-    ``trace`` on its own device. The route follows the destination's type
+    march on its own device. The route follows the destination's type
     alone and is counted in ``routes``. Every other keyword is passed on,
     so both routes take ``trace``'s keywords and reject unknown ones; the
     method defaults to ``trace``'s rk45 on both.
@@ -56,16 +66,29 @@ def trace_auto(rays, spin, march_dtype=None, **kw):
     ``march_dtype`` is the kernel's working precision on a CUDA batch:
     float32 when None (as the TPU kernel marches), or float64. The plain
     march works in the batch's own dtype, so on its route it must be None
-    or that dtype."""
+    or that dtype.
+
+    ``progress=True`` (or, when it is None, ``RT_PROGRESS=1`` in the
+    environment) marches in phases with a progress bar on stderr between
+    them: ``trace_kernel_phased`` on the kernel route (counted as
+    "kernel_phased"), ``trace_compacted(progress=True)`` on the plain one
+    ("plain_phased"); the compiled analogue of the reference's in-loop bar
+    (raytracer.cpp:107-115)."""
+    if progress is None:
+        progress = os.environ.get("RT_PROGRESS", "0") == "1"
     method = kw.pop("method", "rk45")
     if rays.r.is_cuda and kernel_supported(method, kw.get("dest")):
-        routes["kernel"] += 1
         steplim = kernel_steplim(method, kw.pop("steplim", None))
         dtype = torch.float32 if march_dtype is None else march_dtype
-        return trace_kernel(rays, spin, method=method, steplim=steplim, march_dtype=dtype, **kw)
+        route, run = ("kernel_phased", trace_kernel_phased) if progress else ("kernel", trace_kernel)
+        routes[route] += 1
+        return run(rays, spin, method=method, steplim=steplim, march_dtype=dtype, **kw)
     if march_dtype not in (None, rays.r.dtype):
         raise ValueError(f"the plain march works in the batch's dtype {rays.r.dtype}, "
                          f"not march_dtype={march_dtype}")
+    if progress:
+        routes["plain_phased"] += 1
+        return trace_compacted(rays, spin, method=method, progress=True, **kw)
     routes["plain"] += 1
     return trace(rays, spin, method=method, **kw)
 
@@ -89,6 +112,8 @@ __all__ = [
     "smooth_radial_observable",
     "trace",
     "trace_auto",
+    "trace_compacted",
     "trace_kernel",
+    "trace_kernel_phased",
     "trace_scan",
 ]

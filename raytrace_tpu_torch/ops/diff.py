@@ -131,10 +131,12 @@ def trace_scan(
 ) -> RayBatch:
     """Fixed-iteration differentiable twin of ``trace``.
 
-    Runs exactly ``n_steps`` lock-step iterations of the plain march's step
-    body over every lane (ended lanes frozen), in chunks of
-    ``checkpoint_every`` iterations (the last one shorter where they do not
-    divide). Where a gradient is being recorded, each chunk runs under
+    Runs ``n_chunks * checkpoint_every`` lock-step iterations of the plain
+    march's step body over every lane (ended lanes frozen), with
+    ``n_chunks = ceil(n_steps / checkpoint_every)`` whole chunks, as the
+    JAX function does: ``n_steps`` itself where ``checkpoint_every``
+    divides it (every default). Where a gradient is being recorded, each
+    chunk runs under
     ``torch.utils.checkpoint``: the forward pass keeps only the chunk
     boundaries (the batch's fields, the step and the RK45 rates as flat
     tensors) and the backward pass recomputes one chunk at a time, so the
@@ -146,11 +148,9 @@ def trace_scan(
     (``_replayed``); under ``torch.func`` they run eagerly.
 
     The per-ray step budget is ``n_steps + 1``, so STEPLIM cannot trigger
-    within it: a ray still going after ``n_steps`` iterations is just
-    unfinished. The JAX function runs ceil(n_steps / checkpoint_every) whole
-    chunks, so the two agree where ``checkpoint_every`` divides ``n_steps``
-    (every default), and elsewhere on every ray that ends within
-    ``n_steps`` iterations.
+    within ``n_steps`` iterations: where the chunks run past ``n_steps``, a
+    ray that needs more than ``n_steps + 1`` steps ends STEPLIM, its count
+    negated, as in JAX; otherwise a ray still going is just unfinished.
     """
     if method not in ("euler", "rk4", "rk45"):
         raise ValueError(f"unknown method {method!r}")
@@ -179,18 +179,17 @@ def trace_scan(
 
     flat = _flat(rays, rays.dt, rates)
     params = (spin, horizon, capture)
+    n_chunks = -(-n_steps // checkpoint_every)
     recording = torch.is_grad_enabled() and any(
         isinstance(x, torch.Tensor) and x.requires_grad for x in flat + params)
     if recording:
-        done = 0
-        while done < n_steps:
-            n = min(checkpoint_every, n_steps - done)
-            flat = checkpoint(functools.partial(run, n), *flat, use_reentrant=False)
-            done += n
-    elif n_steps > 1 and _replay_graphs(rays):
-        flat = _replayed(advance, flat, n_steps, params)
+        for _ in range(n_chunks):
+            flat = checkpoint(functools.partial(run, checkpoint_every), *flat,
+                              use_reentrant=False)
+    elif n_chunks * checkpoint_every > 1 and _replay_graphs(rays):
+        flat = _replayed(advance, flat, n_chunks * checkpoint_every, params)
     else:
-        flat = run(n_steps, *flat)
+        flat = run(n_chunks * checkpoint_every, *flat)
 
     final, step, _ = _unflat(flat)
     final = final.replace(dt=step)

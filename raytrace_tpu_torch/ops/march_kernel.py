@@ -36,8 +36,10 @@ from raytrace_tpu_torch.ops.integrate import (
     StepControl,
     _fresh_propagation_state,
     _refine_theta_crossing,
+    march_budget,
+    run_phases,
 )
-from raytrace_tpu_torch.rays import RayBatch
+from raytrace_tpu_torch.rays import RAY_STATUS_TERMINAL, RayBatch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -180,11 +182,19 @@ def _dest_args(dest) -> list:
 
 
 def prepare(rays: RayBatch, spin, *, method, dest, r_max, steplim, ctrl: StepControl,
-            boundary, march_dtype):
-    """Fresh-propagation setup, then the 21 marched fields as fresh
-    contiguous buffers (floats in ``march_dtype``, counters int32, gates
-    bool) and the scalar arguments of the launch. Raises on anything the
-    kernel does not take."""
+            boundary, march_dtype, resume=False, max_iters=None):
+    """Fresh-propagation setup (skipped with ``resume``), then the 21
+    marched fields as fresh contiguous buffers (floats in ``march_dtype``,
+    counters int32, gates bool) and the scalar arguments of the launch,
+    ``max_iters`` (default ``march_budget(steplim)``) at index
+    ``_MAX_ITERS``. Raises on anything the kernel does not take.
+
+    A resumed launch loads what the last one stored: its buffers are
+    copied from the batch that launch returned. A float32 march of a
+    float64 batch casts the float32 results to float64 in ``finish`` and
+    back here; both casts are exact (every float32 is a float64), so a
+    march resumed through ``trace_kernel(..., resume=True)`` starts from
+    the very bits the last launch stored."""
     if method not in _METHOD_CODE:
         raise NotImplementedError(f"march kernel supports euler, rk4 and rk45, got {method!r}")
     if dest is None:
@@ -202,8 +212,10 @@ def prepare(rays: RayBatch, spin, *, method, dest, r_max, steplim, ctrl: StepCon
             raise ValueError(f"field {f}: expected shape ({n},) on {device}, got {tuple(x.shape)} on {x.device}")
 
     horizon = horizon_radius(spin) if boundary is None else boundary
-    rays = _fresh_propagation_state(rays, spin, horizon, method, ctrl)
-    max_iters = steplim + steplim // 4 + 16
+    if not resume:
+        rays = _fresh_propagation_state(rays, spin, horizon, method, ctrl)
+    if max_iters is None:
+        max_iters = march_budget(steplim)
 
     def fresh(x, dtype):
         return torch.empty(n, dtype=dtype, device=device).copy_(x)
@@ -220,6 +232,10 @@ def prepare(rays: RayBatch, spin, *, method, dest, r_max, steplim, ctrl: StepCon
         _METHOD_CODE[method], _DTYPE_CODE[march_dtype],
     ]
     return rays, dest, buf, scalars
+
+
+# the index of max_iters among prepare's scalars
+_MAX_ITERS = 10
 
 
 def pointers(buf: dict) -> list:
@@ -246,11 +262,15 @@ def trace_kernel(
     steplim: int = 30_000,
     ctrl: StepControl = StepControl(),
     boundary=None,
+    max_iters: int | None = None,
+    resume: bool = False,
     refine_crossing: bool = True,
     march_dtype=torch.float32,
 ) -> RayBatch:
     """CUDA-kernel twin of ``ops.integrate.trace`` (euler/rk4/rk45 with
-    ThetaLimit, DiscWithISCO, FlatPlane or SphericalShell).
+    ThetaLimit, DiscWithISCO, FlatPlane or SphericalShell), with the same
+    ``max_iters`` (here each ray's own iterations, default
+    ``march_budget(steplim)``) and ``resume``.
 
     The batch must live on a CUDA device. Launches once on the current
     stream, under the instantiation's schedule (``schedule_of``), and does
@@ -258,25 +278,75 @@ def trace_kernel(
     the final theta-crossing back-interpolation.
     """
     return _trace(rays, spin, None, method=method, dest=dest, r_max=r_max, steplim=steplim,
-                  ctrl=ctrl, boundary=boundary, refine_crossing=refine_crossing,
-                  march_dtype=march_dtype)
+                  ctrl=ctrl, boundary=boundary, max_iters=max_iters, resume=resume,
+                  refine_crossing=refine_crossing, march_dtype=march_dtype)
 
 
 def _trace(rays: RayBatch, spin, schedule, *, method, dest, r_max, steplim, ctrl, boundary,
-           refine_crossing, march_dtype) -> RayBatch:
+           refine_crossing, march_dtype, max_iters=None, resume=False) -> RayBatch:
     """``trace_kernel`` under ``schedule``: None for the instantiation's
     own, else "grid" or "refill". chip_smoke.py and a cuda test pass one
     to hold the two schedules against each other; nothing else does."""
-    if not rays.r.is_cuda:
-        raise ValueError("trace_kernel needs a batch on a CUDA device; "
-                         "ops.integrate.trace is the plain version")
+    _need_cuda(rays, "trace_kernel")
     rays, dest, buf, scalars = prepare(
         rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim, ctrl=ctrl,
-        boundary=boundary, march_dtype=march_dtype,
+        boundary=boundary, march_dtype=march_dtype, resume=resume, max_iters=max_iters,
     )
     if rays.n_rays > 0:
         _launch(buf, scalars, schedule or schedule_of(method, dest, march_dtype))
     return finish(rays, buf, dest, spin, refine_crossing)
+
+
+def _need_cuda(rays: RayBatch, name: str) -> None:
+    if not rays.r.is_cuda:
+        raise ValueError(f"{name} needs a batch on a CUDA device; "
+                         "ops.integrate.trace is the plain version")
+
+
+def trace_kernel_phased(
+    rays: RayBatch,
+    spin,
+    *,
+    method: str = "rk4",
+    dest=None,
+    r_max=1000.0,
+    steplim: int = 30_000,
+    ctrl: StepControl = StepControl(),
+    boundary=None,
+    phase_iters: int = 2048,
+    march_dtype=torch.float32,
+) -> RayBatch:
+    """``trace_kernel`` with progress: the counterpart of the JAX
+    ``trace_pallas_phased``.
+
+    The fresh-propagation set-up runs once on the whole batch; then the
+    kernel is launched in resume mode, ``phase_iters`` iterations a ray at
+    a time (``ops.integrate.run_phases``), on the same buffers, which stay
+    in the march dtype between launches, until no ray is active or the
+    budget ``march_budget(steplim)`` is spent. Between launches the live
+    rays are counted (one device sync) and a progress bar on stderr shows
+    the iterations used and the live count. The theta crossing is refined
+    once, at the end. A launch stops a ray where one launch of the budget
+    would carry it on, so Euler and RK4 give that launch's bits; an RK45
+    ray takes its rates afresh from its stored position at each boundary.
+    The lanes run their own rays, so no survivor gather is needed.
+    """
+    _need_cuda(rays, "trace_kernel_phased")
+    rays, dest, buf, scalars = prepare(
+        rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim, ctrl=ctrl,
+        boundary=boundary, march_dtype=march_dtype,
+    )
+    schedule = schedule_of(method, dest, march_dtype)
+
+    def phase(buf, iters):
+        _launch(buf, scalars[:_MAX_ITERS] + [iters] + scalars[_MAX_ITERS + 1:], schedule)
+        live = (buf["steps"] >= 0) & ((buf["status"] & RAY_STATUS_TERMINAL) == 0)
+        return buf, int(live.sum())
+
+    if rays.n_rays > 0:
+        run_phases(buf, march_budget(steplim), phase_iters, phase,
+                   label=f"march[{method}] {rays.n_rays} rays")
+    return finish(rays, buf, dest, spin, refine_crossing=True)
 
 
 def _launch(buf: dict, scalars: list, schedule: str) -> None:

@@ -70,9 +70,40 @@ def test_trace_scan_matches_trace_and_jax():
     np.testing.assert_allclose(scan.r.numpy()[~edge], np.asarray(ref.r)[~edge], rtol=1e-11)
 
 
-def _single_ray(spin, h, method, checkpoint_every=64, alpha=2.0, beta=1.0):
+def test_trace_scan_runs_whole_chunks_as_jax():
+    """Where checkpoint_every does not divide n_steps, trace_scan runs
+    ceil(n_steps / checkpoint_every) whole chunks, as JAX's: at n_steps 96
+    and checkpoint_every 64, 128 iterations under the per-ray steplim 97,
+    so every ray that needs more than 97 steps (all 48 live rays of the
+    0.5 grid need ~330) ends STEPLIM with its count negated. Statuses equal
+    JAX's trace_scan on every ray, unrecorded and with a gradient recorded
+    (the checkpointed chunks); steps on every ray but the sin(beta) = 0
+    ones (tests/test_torch_diff_scan.py's first test)."""
+    from raytrace_tpu.ops.diff import trace_scan as jscan
+    from raytrace_tpu.sources import PointSourceGrid as JGrid
+    from raytrace_tpu.sources import point_source as jpoint_source
+
+    steps = (0.5, 0.5, -0.9, 0.9, -3.0, 3.0)
+    kw = dict(method="rk4", r_max=500.0, n_steps=96, checkpoint_every=64)
+    rays = point_source((0.0, 5.0, 1e-3, 0.0), 0.0, SPIN, PointSourceGrid.from_steps(*steps),
+                        device="cpu")
+    jrays = jpoint_source((0.0, 5.0, 1e-3, 0.0), V=0.0, spin=SPIN, grid=JGrid.from_steps(*steps))
+    ref = jscan(jrays, SPIN, **kw)
+    live = rays.steps.numpy() == 0
+    edge = rays.beta.numpy() == 0.0
+    assert live.sum() == 48
+    assert ((np.asarray(ref.status) == 8) == live).all()
+    spin = torch.tensor(SPIN, dtype=F64, requires_grad=True)
+    for out in (trace_scan(rays, SPIN, **kw), trace_scan(rays, spin, **kw)):
+        np.testing.assert_array_equal(out.status.numpy(), np.asarray(ref.status))
+        np.testing.assert_array_equal(out.steps.numpy()[live & ~edge], -97)
+        np.testing.assert_array_equal(out.steps.numpy()[~edge], np.asarray(ref.steps)[~edge])
+
+
+def _single_ray(spin, h, method, checkpoint_every=64, alpha=2.0, beta=1.0, n_steps=None):
     """Landing radius and redshift of one robust disc-hitting lamppost ray
-    (tests/test_diff.py::_single_ray_pipeline)."""
+    (tests/test_diff.py::_single_ray_pipeline); with ``n_steps`` fewer than
+    SINGLE_STEPS, its radius and redshift that many iterations out."""
     n = 8
     full = lambda v: torch.full((n,), v, dtype=F64)
     r0 = h * torch.ones(n, dtype=F64)
@@ -81,8 +112,8 @@ def _single_ray(spin, h, method, checkpoint_every=64, alpha=2.0, beta=1.0):
     rays = blank_batch(n, device="cpu").replace(
         r=r0, theta=th0, k=c.k, h=c.h, Q=c.Q, rdot_sign=c.rdot_sign,
         thetadot_sign=c.thetadot_sign, steps=torch.zeros(n, dtype=torch.int32), emit=full(1.0))
-    out = trace_scan(rays, spin, method=method, r_max=500.0, n_steps=SINGLE_STEPS[method],
-                     checkpoint_every=checkpoint_every)
+    out = trace_scan(rays, spin, method=method, r_max=500.0,
+                     n_steps=n_steps or SINGLE_STEPS[method], checkpoint_every=checkpoint_every)
     out = apply_redshift(out, spin, V=-1.0)
     return torch.stack([out.r[0], out.redshift[0]])
 
@@ -154,3 +185,38 @@ def check_single_ray_gradients(method):
 
 def test_single_ray_gradients_match_jax_rk4():
     check_single_ray_gradients("rk4")
+
+
+def test_forward_mode_beside_a_recorded_gradient():
+    """Forward mode through trace_scan while another input records a
+    gradient, so that the march divides through integrate._Quotient (the
+    division whose backward keeps a zero cotangent from meeting an
+    overflowed derivative). d(r, redshift)/d(spin) of the single RK4 ray
+    64 iterations out (four checkpointed chunks of 16), by
+    torch.autograd.forward_ad and by torch.func.jacfwd with h recording a
+    gradient, equals the tangent of the same march with nothing recorded
+    bit for bit; and h's gradient, taken by backward inside the same dual
+    level, equals the one taken without a tangent bit for bit."""
+    from torch.autograd import forward_ad as fwad
+
+    kw = dict(checkpoint_every=16, n_steps=64)
+
+    def dual_run(h):
+        with fwad.dual_level():
+            s = fwad.make_dual(torch.tensor(SPIN, dtype=F64), torch.tensor(1.0, dtype=F64))
+            value, tangent = fwad.unpack_dual(_single_ray(s, h, "rk4", **kw))
+            d_h = torch.autograd.grad(value[0], h) if h.requires_grad else None
+            return value.detach(), tangent.detach(), d_h
+
+    value, tangent, _ = dual_run(torch.tensor(5.0, dtype=F64))
+    assert torch.isfinite(tangent).all() and float(tangent.abs().min()) > 0
+    h = torch.tensor(5.0, dtype=F64, requires_grad=True)
+    value_h, tangent_h, (d_h,) = dual_run(h)
+    assert torch.equal(value_h, value) and torch.equal(tangent_h, tangent)
+    jac = torch.func.jacfwd(lambda s: _single_ray(s, h, "rk4", **kw))(
+        torch.tensor(SPIN, dtype=F64))
+    assert torch.equal(jac.detach(), tangent)
+
+    h_alone = torch.tensor(5.0, dtype=F64, requires_grad=True)
+    (d_h_alone,) = torch.autograd.grad(_single_ray(SPIN, h_alone, "rk4", **kw)[0], h_alone)
+    assert torch.equal(d_h, d_h_alone) and float(d_h) > 0

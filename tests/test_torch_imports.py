@@ -46,3 +46,31 @@ def test_the_check_sees_what_it_forbids():
     found = sorted({n for n in _imported(ast.parse(src)) if _forbidden(n)})
     assert found == ["flax", "jax.numpy", "raytrace_tpu.ops"]
     assert len(FILES) > 40
+
+
+# the resumable march's tools and the multi-GPU layer
+NEW_MODULES = (
+    "raytrace_tpu_torch.utils.checkpoint",
+    "raytrace_tpu_torch.utils.profiling",
+    "raytrace_tpu_torch.utils.progress",
+    "raytrace_tpu_torch.parallel",
+    "raytrace_tpu_torch.parallel.sharding",
+    "raytrace_tpu_torch.parallel.multiprocess_check",
+    "raytrace_tpu_torch.parallel.scaling_bench",
+)
+
+
+@pytest.mark.parametrize("module", NEW_MODULES)
+def test_module_imports_where_jax_cannot(module):
+    """Each module is one the walk above checks, and imports in a fresh
+    interpreter in which ``import jax`` and ``import raytrace_tpu`` fail."""
+    import subprocess
+    import sys
+
+    path = module.replace(".", "/")
+    assert f"{path}.py" in FILES or f"{path}/__init__.py" in FILES
+    code = ("import sys\nsys.modules['jax'] = None\nsys.modules['raytrace_tpu'] = None\n"
+            f"import {module}\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
