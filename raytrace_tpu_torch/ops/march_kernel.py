@@ -102,15 +102,16 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found on PATH or under $CUDA_HOME/bin: cannot build the march kernel")
 
 
-def nvcc_command(source, out) -> list:
+def nvcc_command(source, out, defines=()) -> list:
     """nvcc's command line for a march library: sm_90a, no FMA contraction
     (``--fmad=false``), so the kernel rounds like the plain march (see the
     note in march.cu), and ``-Xptxas -v`` (registers, stack and spills per
-    kernel)."""
+    kernel); ``defines`` adds ``-D`` flags (``RT_LAUNCH_TRACE``: the
+    launch-trace side build, which chip_smoke.py makes)."""
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-o", str(out), str(source),
+        *(f"-D{d}" for d in defines), "-o", str(out), str(source),
     ]
 
 
