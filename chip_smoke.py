@@ -20,7 +20,9 @@ script exits non-zero:
      rk45, float32 and float64, on the golden 0.05 grid (5,040 rays);
   3. golden: apps.emissivity.compute on the card against the reference
      binary's emissivity profile, with the count gates of
-     tests/test_emissivity.py;
+     tests/test_emissivity.py; and the midspin lamppost below the ISCO
+     (spin 0.5, h 3) against its golden under the gates of
+     tests/test_emissivity.py:158-196;
   4. full size: the emissivity CLI on par_example/emissivity.par (about
      2.5 M rays, RK45), and again with --integrator=rk4; the kernel's
      launch count is zeroed before and read after each run. Then the
@@ -125,6 +127,11 @@ script exits non-zero:
      events around the march) and lock-step iterations, its kernel
      launches (zeroed before, read after, by variant), its output read back
      and checked;
+     17b. the line profile's spin secant: apps.imageplane_disc_image.compute
+     through the kernel (rk45 x theta, march_dtype float64) at spins 0.88
+     and 0.92 on the dense 89 x 89 camera (dist 100, incl 55, r_disc 15),
+     folded and held against the reference binary's pair under the gates
+     of tests/test_diff.py:335-418; the float32 march's figures beside;
  18. slice checks on the card: pcyg against the reference binary's golden
      (tests/test_capabilities.py:210-245); map_rays and run_source_trace
      on the card against the CPU on phase 17's geometries cut to a few
@@ -224,6 +231,7 @@ ROOT = Path(__file__).resolve().parent
 SPIN = 0.998
 SOURCE = (0.0, 5.0, 1e-3, 1.5707)
 GOLDEN = ROOT / "tests" / "golden" / "emissivity_a0.998_h5_g0.05.dat"
+GOLDEN_MIDSPIN = ROOT / "tests" / "golden" / "emissivity_a0.5_h3_g0.05.dat"
 PARFILE = ROOT / "par_example" / "emissivity.par"
 IMAGE_PARFILE = ROOT / "par_example" / "imageplane_disc_image.par"
 GOLDEN_ISCO = ROOT / "tests" / "golden" / "disc_image_isco_a0.998_i60_rk45.bin"
@@ -550,6 +558,45 @@ def image_golden_check(tag, out, path, n, count_tol, tols, min_pixels):
     check(good.sum() >= min_pixels, f"{tag}: only {int(good.sum())} gated pixels")
     for f, tol in tols.items():
         check(devs[f] < tol, f"{tag}: {f} median dev {devs[f]:.3e} >= {tol}")
+
+
+def read_dense_golden(tag, n=89):
+    """A raw-dump disc-image golden of the line-profile pair
+    (tests/test_diff.py:362-376): the .bin frames transposed to [x][y],
+    the .counts dump x-major already."""
+    maps, counts = read_image_golden(ROOT / "tests" / "golden" / f"disc_image_{tag}.bin", n)
+    return {k: v.T for k, v in maps.items()}, counts
+
+
+def line_profile(maps, counts):
+    """The folded line profile P and its ray counts N over 48 bins of
+    E_obs/E_rest on [0.3, 1.3] (tests/test_diff.py:378-388)."""
+    import numpy as np
+
+    edges = np.linspace(0.3, 1.3, 49)
+    good = ((counts > 0) & np.isfinite(maps["flux"]) & np.isfinite(maps["enshift"])
+            & (maps["enshift"] > 0))
+    e = maps["enshift"][good]
+    P, _ = np.histogram(e, bins=edges, weights=(maps["flux"] * counts)[good])
+    N, _ = np.histogram(e, bins=edges, weights=counts[good].astype(float))
+    return P, N
+
+
+def secant_figures(prof):
+    """The count-gated bins and, on them, the level and secant deviations of
+    the profiles ``prof`` (spin -> (P, N)) from the reference binary's pair
+    at spins 0.88 and 0.92 (tests/test_diff.py:398-418)."""
+    import numpy as np
+
+    PA, NA = line_profile(*read_dense_golden("dense_a0.88_i55"))
+    PB, NB = line_profile(*read_dense_golden("dense_a0.92_i55"))
+    (PmA, NmA), (PmB, NmB) = prof[0.88], prof[0.92]
+    gate = ((NA >= 100) & (NB >= 100) & (np.abs(NB - NA) <= 0.02 * NA) & (NmA >= 100)
+            & (np.abs(NmB - NmA) <= 0.02 * NmA)
+            & (np.abs(PB / np.where(PA == 0, 1, PA) - 1) > 0.01))
+    lev = np.abs(PmA[gate] / PA[gate] - 1)
+    rel = np.abs((PmB - PmA)[gate] / (PB - PA)[gate] - 1)
+    return gate, lev, rel
 
 
 def sass_kernels(dis):
@@ -2075,8 +2122,8 @@ def reject_run(name, rays, spin, torch, r_max=1000.0):
 
 
 def outflow_phases(launches, image_fits, torch):
-    """Phases 17 and 18: the outflow and wind family, the perf harness and
-    the line profile. Adds phase 17's kernel launches to ``launches`` by
+    """Phases 17, 17b and 18: the outflow and wind family, the perf harness,
+    the line profile and its spin secant golden. Adds phase 17's kernel launches to ``launches`` by
     variant; returns the reject statistics of the emissivity batch."""
     import importlib
     import io
@@ -2084,7 +2131,7 @@ def outflow_phases(launches, image_fits, torch):
 
     import numpy as np
 
-    from raytrace_tpu_torch.apps import emissivity
+    from raytrace_tpu_torch.apps import emissivity, imageplane_disc_image
     from raytrace_tpu_torch.apps import pcyg as pcyg_app
     from raytrace_tpu_torch.config import Config
     from raytrace_tpu_torch.ops import integrate, mapper, march_kernel, source_tracer
@@ -2148,6 +2195,41 @@ def outflow_phases(launches, image_fits, torch):
                           if text.real is not None else "")
                 print(f"full width {mod}.{entry} ({tag}): wall {wall:.3f} s, {share}{per_iter}"
                       f"{writer}, {n_launch} kernel launch(es) {by_variant}; {line}")
+
+    with Phase("17b line-profile spin secant golden"):
+        # the folded line profile of the dense disc image at spins 0.88 and 0.92
+        # against the reference binary's pair, with the gates of
+        # tests/test_diff.py:335-418, each spin through the kernel by the app's
+        # route (trace_auto) in float64, as the CPU tests hold it: the app's
+        # float32 march (printed beside) misses these gates, its step sequence
+        # set by float32 noise at rk45_tol 1e-8
+        grid = ImagePlaneGrid.from_steps(-10.875, 11.125, 0.25, -10.875, 11.125, 0.25)
+        figures = {}
+        for dtype in (torch.float64, torch.float32):
+            prof, walls = {}, []
+            for a in (0.88, 0.92):
+                before = march_kernel.launches
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = imageplane_disc_image.compute(a, 100.0, 55.0, grid, 15.0, method="rk45",
+                                                    steplim=100000, device="cuda",
+                                                    march_dtype=dtype)
+                walls.append(time.perf_counter() - t0)
+                check(march_kernel.launches == before + 1,
+                      f"line profile at spin {a}: {march_kernel.launches - before} launches")
+                prof[a] = line_profile({k: np.nan_to_num(v) for k, v in out.items()},
+                                       out["counts"])
+            gate, lev, rel = figures[dtype] = secant_figures(prof)
+            print(f"golden line-profile secant (89 x 89, rk45 x theta "
+                  f"{str(dtype).replace('torch.float', 'f')} kernel): walls {walls[0]:.3f} + "
+                  f"{walls[1]:.3f} s, {int(gate.sum())} gated bins (>= 15), level median "
+                  f"{np.median(lev):.3e} (1e-3), secant median {np.median(rel):.3e} (0.01), "
+                  f"max {rel.max():.3e} (0.10)" + ("" if dtype == torch.float64 else
+                                                   "; float32, not gated"))
+        gate, lev, rel = figures[torch.float64]
+        check(gate.sum() >= 15, f"line-profile secant: only {int(gate.sum())} gated bins")
+        check(np.median(lev) < 1e-3, f"line-profile level off: {lev}")
+        check(np.median(rel) < 0.01 and rel.max() < 0.10, f"line-profile secant off: {rel}")
 
     with Phase("18 outflow family checks"):
         # pcyg against the reference binary (tests/test_capabilities.py:210-245)
@@ -2982,6 +3064,36 @@ def main() -> int:
         check(gated.sum() >= 12, "fewer than 12 gated bins")
         check(devs["emis"] < 0.10 and devs["flux"] < 0.10, f"emis/flux off: {devs}")
         check(devs["redshift"] < 0.005 and devs["time"] < 0.05, f"redshift/time off: {devs}")
+
+        # the midspin lamppost below the ISCO, with the gates of
+        # tests/test_emissivity.py:158-196 (the reference's sub-annulus quirk
+        # puts every bin area 1.5-2.5% high at this spin)
+        ref = dict(zip(["r", "area", "rays", "flux", "emis", "redshift", "time"],
+                       np.loadtxt(GOLDEN_MIDSPIN).T))
+        before = march_kernel.launches
+        grid = emissivity.PointSourceGrid.from_steps(0.05, 0.05, -0.995, 0.995, -math.pi, math.pi)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = emissivity.compute(0.5, (0.0, 3.0, 1e-3, 1.5707), V=0.0, grid=grid, r_max=1000.0,
+                                 r_disc=500.0, n_r=100, logbin_r=True, gamma=2.0, method="rk45",
+                                 steplim=20000, device="cuda")
+        wall = time.perf_counter() - t0
+        check(march_kernel.launches > before, "midspin golden run did not launch the kernel")
+        r_dev = float(np.abs(out["r"] / ref["r"] - 1).max())
+        area = np.abs(out["area"] / ref["area"] - 1)
+        gated = (ref["rays"] >= 100) & (out["rays"] >= 100) & (
+            np.abs(out["rays"] - ref["rays"]) < 0.10 * np.maximum(ref["rays"], 1))
+        devs = {f: float(np.abs(out[f][gated] / ref[f][gated] - 1).max())
+                for f in ("emis", "flux", "redshift", "time")}
+        print(f"golden midspin (a 0.5, h 3, rk45 f32 kernel): wall {wall:.3f} s, r max rel dev "
+              f"{r_dev:.3e} (gate 1e-6), area rel dev {area.min():.4f}-{area.max():.4f} "
+              f"(0.015-0.025), {int(gated.sum())} gated bins (>= 6), max rel dev {devs} "
+              f"(emis 0.10, redshift 0.005, time 0.05; flux not gated)")
+        check(r_dev <= 1e-6, f"midspin r off: {r_dev}")
+        check(0.015 < area.min() and area.max() < 0.025, f"midspin areas off: {area}")
+        check(gated.sum() >= 6, "midspin: fewer than 6 gated bins")
+        check(devs["emis"] < 0.10 and devs["redshift"] < 0.005 and devs["time"] < 0.05,
+              f"midspin emis/redshift/time off: {devs}")
 
     launches = {}
     held = {}  # (main path, variant) -> (parity record, plain ms, plain steplim)

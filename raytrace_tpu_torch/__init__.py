@@ -5,3 +5,10 @@ hand-written CUDA kernel for Hopper (``ops/march_kernel.py``) beside its
 plain PyTorch version (``ops/integrate.py``). The module layout mirrors
 ``raytrace_tpu``; this package imports torch and numpy only.
 """
+
+from raytrace_tpu_torch.geometry import kerr
+from raytrace_tpu_torch.rays import RayBatch
+
+__version__ = "0.1.0"
+
+__all__ = ["kerr", "RayBatch", "__version__"]

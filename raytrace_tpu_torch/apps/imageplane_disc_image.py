@@ -144,6 +144,7 @@ def compute(
     *,
     device,
     mesh=None,
+    march_dtype=None,
 ):
     """Trace the camera grid on ``device`` and accumulate the per-pixel
     disc maps. Returns a dict of (img_nx, img_ny) numpy arrays: counts,
@@ -151,9 +152,11 @@ def compute(
     (imageplane_disc_image.cpp:166-176).
 
     The batch is built, redshifted and binned in float64; the march goes
-    through ``trace_auto``: the CUDA kernel in float32 for a CUDA device,
-    the plain march in float64 otherwise. The image plane's knife-edge floor
-    is set for the march's dtype. A CUDA device with no card visible raises.
+    through ``trace_auto``: the CUDA kernel in ``march_dtype`` for a CUDA
+    device (float32 when None, as the TPU kernel marches), the plain march
+    in float64 otherwise (where ``march_dtype`` must be None or float64).
+    The image plane's knife-edge floor is set for the march's dtype. A CUDA
+    device with no card visible raises.
 
     The march and the accumulation go through
     ``parallel.sharded_disc_image``: with a ``mesh``
@@ -179,15 +182,16 @@ def compute(
     else:
         raise ValueError(f"unknown variant {variant!r}")
 
-    # trace_auto marches a CUDA batch in float32 (ops/__init__.py)
-    march_dtype = torch.float32 if device.type == "cuda" else torch.float64
+    if march_dtype is None:  # trace_auto marches a CUDA batch in float32 (ops/__init__.py)
+        march_dtype = torch.float32 if device.type == "cuda" else torch.float64
     rays = image_plane(dist, incl_deg, grid, spin, phi0, device=device,
                        work_dtype=march_dtype)
     counts, images = sharded_disc_image(
         rays, spin, mesh or RayMesh(group=None, rank=0, size=1, device=device), grid=grid,
         r_disc=r_disc, img_nx=img_nx, img_ny=img_ny, method=method, r_max=1.1 * dist,
         steplim=steplim, ctrl=ctrl, variant=variant, dest=dest, theta_lim=theta_lim,
-        r_isco=r_isco, q1=q1, rb1=rb1, q2=q2, rb2=rb2, q3=q3, flip_image=flip_image)
+        r_isco=r_isco, q1=q1, rb1=rb1, q2=q2, rb2=rb2, q3=q3, flip_image=flip_image,
+        march_dtype=march_dtype)
     counts_np = counts.cpu().numpy()
     with np.errstate(divide="ignore", invalid="ignore"):
         result = {k: v.cpu().numpy() / counts_np for k, v in images.items()}

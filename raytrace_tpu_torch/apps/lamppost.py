@@ -32,6 +32,7 @@ import sys
 import numpy as np
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.apps import app_device, require_device
 from raytrace_tpu_torch.config import Config
 from raytrace_tpu_torch.geometry import isco_radius, metric_coeffs, momentum_from_consts
@@ -95,7 +96,7 @@ def _build_source(cfg, grid):
         a_ = g.g_tt
         b_ = 2.0 * g.g_tphi * uph
         c_ = g.g_rr * ur**2 + g.g_thth * uth**2 + g.g_phph * uph**2 - 1.0
-        ut = (-b_ + torch.sqrt(b_ * b_ - 4 * a_ * c_)) / (2 * a_)
+        ut = (-b_ + mathfn.sqrt(b_ * b_ - 4 * a_ * c_)) / (2 * a_)
         rays = point_source_vel(tuple(source), (ut, ur, uth, uph), spin, grid, device=device)
         mode = f"vel u=({float(ut):.3f},{ur},{uth},{uph})"
     else:

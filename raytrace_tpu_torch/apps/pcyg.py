@@ -25,6 +25,7 @@ import sys
 
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.apps import app_device, require_device
 from raytrace_tpu_torch.config import Config
 from raytrace_tpu_torch.io import TextOutput
@@ -82,10 +83,10 @@ def compute(
 
     def plane():
         z = r_sph - iz * dz
-        r = torch.sqrt(rho_sq + z * z)
+        r = mathfn.sqrt(rho_sq + z * z)
         this_v = v0 * (0.01 + 0.99 * (1.0 - 1.0 / r))
         costh = z / r
-        gamma = 1.0 / torch.sqrt(1.0 - this_v * this_v)
+        gamma = 1.0 / mathfn.sqrt(1.0 - this_v * this_v)
         e_loc = 1.0 / (gamma * (1.0 - this_v * costh))
         if logbin_en:
             ien = torch.floor(torch.log(_sdiv(e_loc, en0)) / log_den).to(torch.int32)

@@ -37,6 +37,7 @@ import sys
 import numpy as np
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.apps import app_device, require_device
 from raytrace_tpu_torch.config import Config
 from raytrace_tpu_torch.io import TextOutput
@@ -104,14 +105,14 @@ def _tau0(r, p: WindParams, norm):
 
 
 def _source_func(r, p: WindParams):
-    s = 0.5 * (1.0 - torch.sqrt(torch.clamp_min(1.0 - 1.0 / (r * r), 0.0)))
+    s = 0.5 * (1.0 - mathfn.sqrt(torch.clamp_min(1.0 - 1.0 / (r * r), 0.0)))
     return torch.where((r > 1.0) & p.line_emis, s, 0.0)
 
 
 def _los_vel(z, pp, p: WindParams):
     """w(r) mu along the sightline at impact parameter pp (observer at
     z -> +inf; disc_wind.cpp:119-128)."""
-    r = torch.sqrt(pp * pp + z * z)
+    r = mathfn.sqrt(pp * pp + z * z)
     return _w(torch.clamp_min(r, 1.0 + 1e-9), p) * z / torch.clamp_min(r, 1e-12)
 
 
@@ -120,7 +121,7 @@ def _find_los_z(v, pp, p: WindParams, iters=60):
     (replaces the GSL Brent solver, disc_wind.cpp:131-182). NaN where no
     root is bracketed."""
     lo = -p.rout * torch.ones_like(v * pp)
-    hi = torch.where(pp > 1.0, p.rout, -torch.sqrt(torch.clamp_min(1.0 - pp * pp, 0.0)))
+    hi = torch.where(pp > 1.0, p.rout, -mathfn.sqrt(torch.clamp_min(1.0 - pp * pp, 0.0)))
     f_lo = _los_vel(lo, pp, p) - v
     f_hi = _los_vel(hi, pp, p) - v
     bracketed = f_lo * f_hi <= 0
@@ -138,9 +139,9 @@ def _z0_for(v, pp, p: WindParams):
     """Resonance point with the reference's fallbacks when no root exists
     (disc_wind.cpp:185-191)."""
     los_z = _find_los_z(v, pp, p)
-    behind = -torch.sqrt(torch.clamp_min(p.rout**2 - pp * pp, 0.0))
-    front = torch.sqrt(torch.clamp_min(p.rout**2 - pp * pp, 0.0))
-    star = -torch.sqrt(torch.clamp_min(1.0 - pp * pp, 0.0))
+    behind = -mathfn.sqrt(torch.clamp_min(p.rout**2 - pp * pp, 0.0))
+    front = mathfn.sqrt(torch.clamp_min(p.rout**2 - pp * pp, 0.0))
+    star = -mathfn.sqrt(torch.clamp_min(1.0 - pp * pp, 0.0))
     fallback = torch.where(v < -0.5, behind, torch.where((pp >= 1.0) & (v > 0.5), front, star))
     return torch.where(torch.isnan(los_z), fallback, los_z)
 
@@ -148,17 +149,17 @@ def _z0_for(v, pp, p: WindParams):
 def _tau(z_start, z0, pp, phi, v, p: WindParams, norm):
     """Smeared Sobolev optical depth from z_start to the wind edge, with
     the resonance point z0 (disc_wind.cpp:184-204)."""
-    r0 = torch.sqrt(pp * pp + z0 * z0)
+    r0 = mathfn.sqrt(pp * pp + z0 * z0)
     mu = z0 / torch.clamp_min(r0, 1e-12)
 
-    r_in = torch.sqrt(pp * pp + z_start * z_start)
+    r_in = mathfn.sqrt(pp * pp + z_start * z_start)
     mu_in = z_start / torch.clamp_min(r_in, 1e-12)
     w_in = _w(torch.clamp_min(r_in, 1.0 + 1e-9), p)
     w_out = _w(p.rout, p)
-    mu_out = -torch.sqrt(torch.clamp_min(p.rout**2 - pp * pp, 0.0)) / p.rout
+    mu_out = -mathfn.sqrt(torch.clamp_min(p.rout**2 - pp * pp, 0.0)) / p.rout
     profile = 0.5 * (torch.special.erf((w_in * mu_in - v) / p.turb)
                      - torch.special.erf((w_out * mu_out - v) / p.turb))
-    costheta = (pp * torch.sin(phi) * torch.sin(p.incl) - z0 * torch.cos(p.incl)
+    costheta = (pp * mathfn.sin(phi) * mathfn.sin(p.incl) - z0 * mathfn.cos(p.incl)
                 ) / torch.clamp_min(r0, 1e-12)
     in_wind = ((costheta < p.wind_angle) & (costheta > 0)).to(profile.dtype)
     r0c = torch.clamp_min(r0, 1.0 + 1e-6)
@@ -196,15 +197,15 @@ def disc_wind_profile(v_grid, p: WindParams, n_p: int = 160, n_phi: int = 48):
     V, P, PHI = torch.meshgrid(v_grid, pp, phi, indexing="ij")
     V1, P1 = V[:, :, :1], P[:, :, :1]
     z0 = _z0_for(V1, P1, p).expand_as(V)
-    r0 = torch.sqrt(P * P + z0 * z0)
-    star_face = -torch.sqrt(torch.clamp_min(1.0 - P * P, 0.0))
+    r0 = mathfn.sqrt(P * P + z0 * z0)
+    star_face = -mathfn.sqrt(torch.clamp_min(1.0 - P * P, 0.0))
     tau_star = _tau(star_face, z0, P, PHI, V, p, norm)
     tau_edge = _tau(torch.ones_like(P) * p.rout, z0, P, PHI, V, p, norm)
     this_tau = torch.where(P < 1.0, tau_star, tau_edge)
 
     emission = _source_func(r0, p) * (1.0 - torch.exp(-this_tau))
-    costheta_star = P * torch.sin(PHI) * torch.sin(p.incl) + torch.sqrt(
-        torch.clamp_min(1.0 - P * P, 0.0)) * torch.cos(p.incl)
+    costheta_star = P * mathfn.sin(PHI) * mathfn.sin(p.incl) + mathfn.sqrt(
+        torch.clamp_min(1.0 - P * P, 0.0)) * mathfn.cos(p.incl)
     on_star = (P < 1.0) & (costheta_star > 0)
     contin = torch.where(on_star & p.continuum, torch.exp(-tau_star), 0.0)
 

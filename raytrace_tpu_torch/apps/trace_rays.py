@@ -21,6 +21,7 @@ import sys
 
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.apps import app_device, require_device
 from raytrace_tpu_torch.config import Config
 from raytrace_tpu_torch.destinations import ThetaLimit
@@ -144,7 +145,7 @@ def _main_moving(kind):
                               torch.tensor(source[2], dtype=torch.float64), spin)
             a_, b_ = g.g_tt, 2.0 * g.g_tphi * uph
             c_ = g.g_rr * ur**2 + g.g_phph * uph**2 - 1.0
-            ut = (-b_ + torch.sqrt(b_ * b_ - 4 * a_ * c_)) / (2 * a_)
+            ut = (-b_ + mathfn.sqrt(b_ * b_ - 4 * a_ * c_)) / (2 * a_)
             rays = point_source_vel(tuple(source), (ut, ur, 0.0 * ut, uph), spin, grid,
                                     device=device)
         _, history = trace_with_history(

@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.geometry.kerr import keplerian_omega, metric_coeffs
 
 
@@ -28,10 +29,10 @@ def _keplerian_four_velocity(r, theta, spin, V=None):
     if V is None:
         V = keplerian_omega(r, spin)
     dv = V - g.omega
-    gamma = 1.0 / torch.sqrt(1.0 - dv * dv * g.e2psi / g.e2nu)
-    ut = gamma / torch.sqrt(g.e2nu)
+    gamma = 1.0 / mathfn.sqrt(1.0 - dv * dv * g.e2psi / g.e2nu)
+    ut = gamma / mathfn.sqrt(g.e2nu)
     zero = torch.zeros_like(ut)
-    return (ut, zero, zero, gamma * V / torch.sqrt(g.e2nu))
+    return (ut, zero, zero, gamma * V / mathfn.sqrt(g.e2nu))
 
 
 def _theta_step_limit(tl, theta, ptheta):
@@ -141,8 +142,8 @@ class FlatPlane(Destination):
         return math.cos(self.incl)
 
     def projection(self, r, theta, phi):
-        return r * (torch.sin(theta) * self.sin_incl * torch.cos(phi - self.phi0)
-                    + torch.cos(theta) * self.cos_incl)
+        return r * (mathfn.sin(theta) * self.sin_incl * mathfn.cos(phi - self.phi0)
+                    + mathfn.cos(theta) * self.cos_incl)
 
     def reached(self, r, theta, phi, prev_theta):
         return self.projection(r, theta, phi) <= -self.z_s
@@ -150,9 +151,9 @@ class FlatPlane(Destination):
     def source_coords(self, r, theta, phi):
         """East/North Cartesian coordinates on the source plane, oriented as
         the image plane (ray_destination.h:195-203)."""
-        X = r * torch.sin(theta) * torch.cos(phi)
-        Y = r * torch.sin(theta) * torch.sin(phi)
-        Z = r * torch.cos(theta)
+        X = r * mathfn.sin(theta) * mathfn.cos(phi)
+        Y = r * mathfn.sin(theta) * mathfn.sin(phi)
+        Z = r * mathfn.cos(theta)
         s0, c0 = math.sin(self.phi0), math.cos(self.phi0)
         x_s = -X * s0 + Y * c0
         y_s = -X * self.cos_incl * c0 - Y * self.cos_incl * s0 + Z * self.sin_incl
@@ -194,7 +195,7 @@ class RadialVelocityField(Destination):
         v = torch.full_like(r, self.v)
         v = torch.where(v < 0, torch.abs(v) * (r * r - 2.0 * r + spin + spin) / (r * r + spin * spin),
                         v)
-        ut = 1.0 / torch.sqrt(g.g_tt + g.g_rr * v * v)
+        ut = 1.0 / mathfn.sqrt(g.g_tt + g.g_rr * v * v)
         zero = torch.zeros_like(ut)
         return (ut, v * ut, zero, zero)
 

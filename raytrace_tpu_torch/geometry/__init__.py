@@ -5,6 +5,7 @@ from raytrace_tpu_torch.geometry.disc import (
     integrate_disc_area,
     integrate_disc_area_bins,
     plunge_velocity,
+    rel_disc_area,
 )
 from raytrace_tpu_torch.geometry.gramschmidt import gram_schmidt_tetrad
 from raytrace_tpu_torch.geometry.kerr import (
@@ -44,4 +45,5 @@ __all__ = [
     "momentum_from_consts",
     "orbit_tetrad",
     "plunge_velocity",
+    "rel_disc_area",
 ]

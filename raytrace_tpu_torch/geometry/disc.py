@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.geometry.gramschmidt import gram_schmidt_tetrad
 from raytrace_tpu_torch.geometry.kerr import (
     Tetrad,
@@ -28,7 +29,7 @@ def coordinate_disc_area(r, dr, a):
     """Proper area of an equatorial annulus for a static slice (kerr.h:249-265)."""
     rhosq = r * r
     delta = r * r - 2.0 * r + a * a
-    return torch.sqrt(r * r + a * a + 2.0 * a * a * r / rhosq) * torch.sqrt(rhosq / delta) * dr
+    return mathfn.sqrt(r * r + a * a + 2.0 * a * a * r / rhosq) * mathfn.sqrt(rhosq / delta) * dr
 
 
 def _parallelogram_area(r, dr, dphi, a, tet: Tetrad):
@@ -51,7 +52,7 @@ def _parallelogram_area(r, dr, dphi, a, tet: Tetrad):
     cx = u[1] * v[2] - u[2] * v[1]
     cy = u[2] * v[0] - u[0] * v[2]
     cz = u[0] * v[1] - u[1] * v[0]
-    return torch.sqrt(cx * cx + cy * cy + cz * cz)
+    return mathfn.sqrt(cx * cx + cy * cy + cz * cz)
 
 
 def rel_disc_area(r, dr, dphi, a):
@@ -62,7 +63,7 @@ def rel_disc_area(r, dr, dphi, a):
 
 
 def _sqrt(x):
-    return torch.sqrt(x) if isinstance(x, torch.Tensor) else math.sqrt(x)
+    return mathfn.sqrt(x) if isinstance(x, torch.Tensor) else math.sqrt(x)
 
 
 def plunge_velocity(r, a, r_plunge=None):
@@ -86,7 +87,7 @@ def plunge_velocity(r, a, r_plunge=None):
         + (a * a * (k * k - 1.0) - h * h) / (r * r)
         + 2.0 * (h - a * k) * (h - a * k) / (r * r * r)
     )
-    ur = -torch.sqrt(torch.clamp_min(ur_sq, 0.0))
+    ur = -mathfn.sqrt(torch.clamp_min(ur_sq, 0.0))
     uphi = (2.0 * a * k / r + (1.0 - 2.0 / r) * h) / delta
     return (ut, ur, torch.zeros_like(ut), uphi)
 

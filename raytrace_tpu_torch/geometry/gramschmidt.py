@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.geometry.kerr import MetricCoeffs, Tetrad, metric_coeffs, metric_dot
 
 
@@ -18,7 +19,7 @@ def _project_out(g: MetricCoeffs, v, e):
 
 
 def _normalise(g: MetricCoeffs, e):
-    norm = torch.sqrt(torch.abs(metric_dot(g, e, e)))
+    norm = mathfn.sqrt(torch.abs(metric_dot(g, e, e)))
     return tuple(ei / norm for ei in e)
 
 

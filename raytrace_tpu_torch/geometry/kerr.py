@@ -19,12 +19,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from raytrace_tpu_torch import mathfn
+
 
 def horizon_radius(a, sign=1):
     """Event horizon radius r_+ = 1 + sqrt(1 - a^2) (kerr.h:13-20), for a
     Python-float or tensor spin."""
     if isinstance(a, torch.Tensor):
-        return 1.0 + sign * torch.sqrt((1.0 - a) * (1.0 + a))
+        return 1.0 + sign * mathfn.sqrt((1.0 - a) * (1.0 + a))
     return 1.0 + sign * math.sqrt((1.0 - a) * (1.0 + a))
 
 
@@ -51,7 +53,7 @@ def _cbrt(x):
 
 def _isco_z12(a):
     z1 = 1.0 + _cbrt(1.0 - a * a) * (_cbrt(1.0 + a) + _cbrt(1.0 - a))
-    z2 = torch.sqrt(3.0 * a * a + z1 * z1)
+    z2 = mathfn.sqrt(3.0 * a * a + z1 * z1)
     return z1, z2
 
 
@@ -74,7 +76,7 @@ def _isco_tangent(a, da, sign):
     u = torch.where(small, (8.0 / 9.0) * a2 * (1.0 + (7.0 / 27.0) * a2), 3.0 - z1)
     du = torch.where(small, (16.0 / 9.0) * a * (1.0 + (14.0 / 27.0) * a2) * da, -dz1)
     v = 3.0 + z1 + 2.0 * z2
-    t = torch.sqrt(u * v)
+    t = mathfn.sqrt(u * v)
     floor = torch.finfo(a.dtype).tiny ** 0.5
     dt = (du * v + u * (2.0 * dz2 - du)) / (2.0 * torch.clamp_min(t, floor))
     return dz2 - sign * dt
@@ -90,7 +92,7 @@ class _IscoRadius(torch.autograd.Function):
     @staticmethod
     def forward(a, sign):
         z1, z2 = _isco_z12(a)
-        return 3.0 + z2 - sign * torch.sqrt((3.0 - z1) * (3.0 + z1 + 2.0 * z2))
+        return 3.0 + z2 - sign * mathfn.sqrt((3.0 - z1) * (3.0 + z1 + 2.0 * z2))
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -113,14 +115,14 @@ class _IscoRadius(torch.autograd.Function):
 def keplerian_omega(r, a, sign=1):
     """Omega = 1 / (a + sign * r^{3/2}) of a circular equatorial orbit
     (kerr.h:34-38), for a Python-float or tensor radius."""
-    root = torch.sqrt(r) if isinstance(r, torch.Tensor) else math.sqrt(r)
+    root = mathfn.sqrt(r) if isinstance(r, torch.Tensor) else math.sqrt(r)
     return 1.0 / (a + sign * r * root)
 
 
 def bl_to_cartesian(r, theta, phi, a):
     """Quasi-Cartesian coordinates of a Boyer-Lindquist point (kerr.h:40-56)."""
-    rho = torch.sqrt(r * r + a * a) * torch.sin(theta)
-    return rho * torch.cos(phi), rho * torch.sin(phi), r * torch.cos(theta)
+    rho = mathfn.sqrt(r * r + a * a) * mathfn.sin(theta)
+    return rho * mathfn.cos(phi), rho * mathfn.sin(phi), r * mathfn.cos(theta)
 
 
 class MetricCoeffs(NamedTuple):
@@ -141,8 +143,8 @@ class MetricCoeffs(NamedTuple):
 
 def metric_coeffs(r, theta, a) -> MetricCoeffs:
     """Covariant Kerr metric at (r, theta) for spin a (kerr.h:93-124)."""
-    sin_t = torch.sin(theta)
-    cos_t = torch.cos(theta)
+    sin_t = mathfn.sin(theta)
+    cos_t = mathfn.cos(theta)
     rhosq = r * r + (a * cos_t) * (a * cos_t)
     delta = r * r - 2.0 * r + a * a
     r2a2 = r * r + a * a
@@ -193,19 +195,19 @@ def orbit_tetrad(r, theta, a, V, g: MetricCoeffs | None = None) -> Tetrad:
         g = metric_coeffs(r, theta, a)
     e2nu, e2psi, omega, rhosq, delta = g.e2nu, g.e2psi, g.omega, g.rhosq, g.delta
     dv = V - omega
-    gamma = 1.0 / torch.sqrt(1.0 - dv * dv * e2psi / e2nu)
-    inv_sqrt_e2nu = 1.0 / torch.sqrt(e2nu)
+    gamma = 1.0 / mathfn.sqrt(1.0 - dv * dv * e2psi / e2nu)
+    inv_sqrt_e2nu = 1.0 / mathfn.sqrt(e2nu)
     zero = torch.zeros_like(gamma)
 
     et = (inv_sqrt_e2nu * gamma, zero, zero, inv_sqrt_e2nu * gamma * V)
-    denom = torch.sqrt(e2nu - dv * dv * e2psi)
-    e1t = dv * torch.sqrt(e2psi / e2nu) / denom
+    denom = mathfn.sqrt(e2nu - dv * dv * e2psi)
+    e1t = dv * mathfn.sqrt(e2psi / e2nu) / denom
     e1ph = (e2nu + V * omega * e2psi - omega * omega * e2psi) / (
-        torch.sqrt(e2nu * e2psi) * denom
+        mathfn.sqrt(e2nu * e2psi) * denom
     )
     ephi = (e1t, zero, zero, e1ph)
-    etheta = (zero, zero, 1.0 / torch.sqrt(rhosq), zero)
-    er = (zero, torch.sqrt(delta / rhosq), zero, zero)
+    etheta = (zero, zero, 1.0 / mathfn.sqrt(rhosq), zero)
+    er = (zero, mathfn.sqrt(delta / rhosq), zero, zero)
     return Tetrad(et=et, ephi=ephi, etheta=etheta, er=er)
 
 
@@ -232,8 +234,8 @@ def geodesic_rates(r, theta, k, h, Q, rdot_sign, thetadot_sign, a) -> GeodesicRa
     1/(rhosq*delta*sin^2) serves every division, sin^2 is floored at the
     dtype's smallest normal, and both square roots take sqrt(max(|x|, tiny)).
     """
-    sin_t = torch.sin(theta)
-    cos_t = torch.cos(theta)
+    sin_t = mathfn.sin(theta)
+    cos_t = mathfn.cos(theta)
     sin2 = sin_t * sin_t
     rhosq = r * r + (a * cos_t) * (a * cos_t)
     delta = r * r - 2.0 * r + a * a
@@ -251,10 +253,10 @@ def geodesic_rates(r, theta, k, h, Q, rdot_sign, thetadot_sign, a) -> GeodesicRa
     cos2 = cos_t * cos_t
     ka = k * a
     thetadot_sq = (Q + cos2 * (ka * ka - h * h * inv_sin2)) * (inv_rhosq * inv_rhosq)
-    ptheta = torch.sqrt(torch.clamp_min(torch.abs(thetadot_sq), tiny)) * thetadot_sign
+    ptheta = mathfn.sqrt(torch.clamp_min(torch.abs(thetadot_sq), tiny)) * thetadot_sign
 
     rdot_sq = (k * pt - h * pphi - rhosq * ptheta * ptheta) * (delta * inv_rhosq)
-    pr = torch.sqrt(torch.clamp_min(torch.abs(rdot_sq), tiny)) * rdot_sign
+    pr = mathfn.sqrt(torch.clamp_min(torch.abs(rdot_sq), tiny)) * rdot_sign
 
     return GeodesicRates(pt, pr, ptheta, pphi, thetadot_sq, rdot_sq,
                          sin_t, cos_t, rhosq, inv_rhosq)
@@ -281,11 +283,11 @@ def constants_from_angles(r, theta, alpha, beta, V, a, E=1.0) -> PhotonConstants
     reference's -1/sqrt(rhosq) theta leg."""
     g = metric_coeffs(r, theta, a)
     tet = orbit_tetrad(r, theta, a, V, g)
-    sin_a = torch.sin(alpha)
+    sin_a = mathfn.sin(alpha)
     p0 = E
-    p1 = E * sin_a * torch.cos(beta)  # along e_phi
-    p2 = E * sin_a * torch.sin(beta)  # along e_theta (reference orientation: -theta)
-    p3 = E * torch.cos(alpha)  # along e_r
+    p1 = E * sin_a * mathfn.cos(beta)  # along e_phi
+    p2 = E * sin_a * mathfn.sin(beta)  # along e_theta (reference orientation: -theta)
+    p3 = E * mathfn.cos(alpha)  # along e_r
 
     tdot = p0 * tet.et[0] + p1 * tet.ephi[0]
     phidot = p0 * tet.et[3] + p1 * tet.ephi[3]
@@ -296,8 +298,8 @@ def constants_from_angles(r, theta, alpha, beta, V, a, E=1.0) -> PhotonConstants
 
 def constants_from_rates(r, theta, tdot, rdot, thetadot, phidot, a) -> PhotonConstants:
     """(k, h, Q) and initial signs from coordinate rates (raytracer.cpp:661-672)."""
-    sin_t = torch.sin(theta)
-    cos_t = torch.cos(theta)
+    sin_t = mathfn.sin(theta)
+    cos_t = mathfn.cos(theta)
     sin2 = sin_t * sin_t
     rhosq = r * r + (a * cos_t) * (a * cos_t)
 
@@ -344,10 +346,10 @@ def circular_orbit_velocity(r, a, sign=1):
     """4-velocity (u^t, 0, 0, u^phi) and Omega of a circular equatorial
     orbit at tensor radius r (kerr.h:215-247)."""
     u = 1.0 / r
-    root = torch.sqrt(u * u * u)
-    den = torch.sqrt(1.0 - 3.0 * u + sign * 2.0 * a * root)
+    root = mathfn.sqrt(u * u * u)
+    den = mathfn.sqrt(1.0 - 3.0 * u + sign * 2.0 * a * root)
     k = (1.0 - 2.0 * u + sign * a * root) / den
-    h = sign * (1.0 + a * a * u * u - sign * 2.0 * a * root) / (torch.sqrt(u) * den)
+    h = sign * (1.0 + a * a * u * u - sign * 2.0 * a * root) / (mathfn.sqrt(u) * den)
 
     denom = r * r * (1.0 - 2.0 / r) * (r * r + a * a) + 2.0 * a * a * r
     ut = ((r * r * (r * r + a * a) + 2.0 * a * a * r) * k - 2.0 * a * r * h) / denom

@@ -27,7 +27,7 @@ from raytrace_tpu_torch.ops.integrate import (
     trace_compacted,
 )
 from raytrace_tpu_torch.ops.march_kernel import trace_kernel, trace_kernel_phased
-from raytrace_tpu_torch.ops.reductions import radial_bin_profile
+from raytrace_tpu_torch.ops.reductions import pixel_accumulate, radial_bin_profile
 
 # trace_auto's routes so far, by name ("kernel" or "plain", and
 # "kernel_phased" or "plain_phased" when the march shows its progress):
@@ -106,6 +106,7 @@ __all__ = [
     "launch_turning_scores",
     "line_profile_from_xy",
     "line_profile_observable",
+    "pixel_accumulate",
     "radial_bin_profile",
     "routes",
     "separatrix_score",

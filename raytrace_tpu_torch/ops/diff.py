@@ -38,6 +38,7 @@ import torch
 from torch.autograd import forward_ad as fwad
 from torch.utils.checkpoint import checkpoint
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.apps import require_device
 from raytrace_tpu_torch.destinations import ThetaLimit
 from raytrace_tpu_torch.geometry import (
@@ -231,8 +232,8 @@ def launch_turning_scores(r0, theta0, k, h, Q, spin):
     A = r0 * r0 + spin * spin - spin * xi
     B = eta + (xi - spin) ** 2
     r_score = (A * A - delta * B) / (A * A + torch.abs(delta) * B + 1.0)
-    sin2 = torch.clamp_min(torch.sin(theta0) ** 2, 1e-30)
-    cos2 = torch.cos(theta0) ** 2
+    sin2 = torch.clamp_min(mathfn.sin(theta0) ** 2, 1e-30)
+    cos2 = mathfn.cos(theta0) ** 2
     barrier = xi * xi / sin2
     th_score = (eta + cos2 * (spin * spin - barrier)) / (eta + spin * spin + barrier + 1.0)
     return r_score, th_score

@@ -22,6 +22,7 @@ import math
 
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.destinations import ThetaLimit
 from raytrace_tpu_torch.geometry.kerr import (
     GeodesicRates,
@@ -452,7 +453,7 @@ def _rk45_body(st: RayBatch, spin, horizon, capture, dest, rlim, steplim, ctrl, 
     sc_th = ctrl.rk45_tol * (1.0 + torch.maximum(torch.abs(th0), torch.abs(th_new)))
     e_r = err_r / sc_r
     e_th = err_th / sc_th
-    err_norm = torch.sqrt(0.5 * (e_r * e_r + e_th * e_th))
+    err_norm = mathfn.sqrt(0.5 * (e_r * e_r + e_th * e_th))
 
     # a non-finite trial is a maximal-error reject; still non-finite at the
     # MIN_STEP floor, the lane is numerically dead

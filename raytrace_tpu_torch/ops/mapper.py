@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.destinations import ThetaLimit
 from raytrace_tpu_torch.geometry.kerr import (
     horizon_radius,
@@ -101,12 +102,12 @@ def _local_redshift(r, theta, phi, k, h, Q, rdot_sign, thetadot_sign, emit, spin
     g = metric_coeffs(r, theta, a)
     if motion == 0:
         dv = V - g.omega
-        gamma = 1.0 / torch.sqrt(1.0 - dv * dv * g.e2psi / g.e2nu)
-        ut = gamma / torch.sqrt(g.e2nu)
+        gamma = 1.0 / mathfn.sqrt(1.0 - dv * dv * g.e2psi / g.e2nu)
+        ut = gamma / mathfn.sqrt(g.e2nu)
         zero = torch.zeros_like(ut)
         et = (ut, zero, zero, ut * V)
     else:
-        ut = 1.0 / torch.sqrt(g.g_tt + g.g_rr * V * V)
+        ut = 1.0 / mathfn.sqrt(g.g_tt + g.g_rr * V * V)
         zero = torch.zeros_like(ut)
         et = (ut, V * ut, zero, zero)
     pt, pr, pth, pph = momentum_from_consts(r, theta, k, h, Q, rdot_sign, thetadot_sign, spin)
@@ -123,13 +124,13 @@ def velocity_law(motion, vel, vel_mode, r, theta, r_max, spin=0.0, reverse=False
     constant, 1 linear in r/r_max, 2 sqrt(r/r_max)."""
     if motion == 0:
         a_eff = -spin if reverse else spin
-        r_p = r * torch.sin(theta)
-        return 1.0 / (a_eff + r_p * torch.sqrt(r_p))
+        r_p = r * mathfn.sin(theta)
+        return 1.0 / (a_eff + r_p * mathfn.sqrt(r_p))
     if vel_mode == 0:
         return vel * torch.ones_like(r)
     if vel_mode == 1:
         return vel * (r / r_max)
-    return vel * torch.sqrt(r / r_max)
+    return vel * mathfn.sqrt(r / r_max)
 
 
 def map_rays(
@@ -206,7 +207,7 @@ def cell_volumes(grid: MapperGrid, spin, *, device="cpu", dtype=torch.float64):
         dr = torch.full_like(r, grid.dr)
     theta = torch.arange(grid.n_theta, dtype=dtype, device=device) * grid.dtheta
     g = metric_coeffs(r[:, None], theta[None, :], spin)
-    dv = torch.sqrt(-g.g_rr * g.g_thth * g.g_phph) * dr[:, None] * grid.dtheta * grid.dphi
+    dv = mathfn.sqrt(-g.g_rr * g.g_thth * g.g_phph) * dr[:, None] * grid.dtheta * grid.dphi
     return dv[:, :, None].expand(grid.n_r, grid.n_theta, grid.n_phi)
 
 

@@ -16,6 +16,7 @@ import math
 
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.geometry.kerr import metric_coeffs, metric_dot, momentum_from_consts
 from raytrace_tpu_torch.rays import RAY_STATUS_DEST, RAY_STATUS_RLIM, RayBatch
 
@@ -44,8 +45,8 @@ def _orbit_et(r, theta, a, V):
     g = metric_coeffs(r, theta, a)
     dv = V - g.omega
     arg = 1.0 - dv * dv * g.e2psi / g.e2nu
-    gamma = 1.0 / torch.sqrt(torch.clamp_min(arg, torch.finfo(arg.dtype).tiny))
-    ut = gamma / torch.sqrt(g.e2nu)
+    gamma = 1.0 / mathfn.sqrt(torch.clamp_min(arg, torch.finfo(arg.dtype).tiny))
+    ut = gamma / mathfn.sqrt(g.e2nu)
     zero = torch.zeros_like(ut)
     return g, (ut, zero, zero, ut * V)
 
@@ -66,8 +67,8 @@ def _resolve_V(V, a, r, theta, projradius: bool):
     """V = -1 selects the Keplerian orbit at the ray's radius, or at the
     radius projected parallel to the equatorial plane with ``projradius``
     (raytracer.cpp:391-394)."""
-    r_eff = r * torch.sin(theta) if projradius else r
-    kepler = 1.0 / (a + r_eff * torch.sqrt(r_eff))
+    r_eff = r * mathfn.sin(theta) if projradius else r
+    kepler = 1.0 / (a + r_eff * mathfn.sqrt(r_eff))
     V = torch.as_tensor(V, dtype=r.dtype, device=r.device)
     return torch.where(V == -1, kepler, V)
 
@@ -83,7 +84,7 @@ def _radial_et(r, theta, spin, a, V):
     spd = (r * r - 2.0 * r + spin + spin) / (r * r + spin * spin)
     Vr = torch.where(V < 0, torch.abs(V) * spd, V)
     arg = g.g_tt + g.g_rr * Vr * Vr
-    ut = 1.0 / torch.sqrt(torch.clamp_min(arg, torch.finfo(arg.dtype).tiny))
+    ut = 1.0 / mathfn.sqrt(torch.clamp_min(arg, torch.finfo(arg.dtype).tiny))
     zero = torch.zeros_like(ut)
     return g, (ut, Vr * ut, zero, zero)
 

@@ -30,6 +30,7 @@ import math
 import numpy as np
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.destinations import ThetaLimit
 from raytrace_tpu_torch.geometry.kerr import horizon_radius, metric_coeffs
 from raytrace_tpu_torch.ops.integrate import (
@@ -168,7 +169,7 @@ def run_source_trace(
         dph = st2.phi - st.phi
         g = metric_coeffs(st2.r, st2.theta, spin)
         dl_sq = -(g.g_rr * dr * dr + g.g_thth * dth * dth + g.g_phph * dph * dph)
-        dl = torch.sqrt(torch.clamp_min(dl_sq, 0.0))
+        dl = mathfn.sqrt(torch.clamp_min(dl_sq, 0.0))
 
         in_wind = moved & ~stopped & wind.in_region(st2.r, st2.theta, st2.phi)
         v = wind.velocity(st2.r)

@@ -268,10 +268,12 @@ def sharded_disc_image(
     r_max=1000.0,
     steplim: int | None = None,
     ctrl: StepControl = StepControl(),
+    march_dtype=None,
 ):
     """The disc-image step over the mesh: ``rays`` is the whole camera
     batch (every rank builds the same one); each rank pads it, takes its
-    shard, marches it backwards (spin negated) and accumulates its pixels
+    shard, marches it backwards (spin negated; ``march_dtype`` is
+    ``trace_auto``'s) and accumulates its pixels
     (``apps.imageplane_disc_image.accumulate_image_maps``), then one
     ``all_reduce`` merges the counts and the six maps. Returns (counts,
     {flux, r, phi, enshift, time, emis}), not divided by the counts, the
@@ -285,7 +287,7 @@ def sharded_disc_image(
     a_trace = -spin  # time reversal (imageplane.cpp:12)
     shard = redshift_start(shard, a_trace, V=0.0, reverse=True)
     out = sharded_trace(shard, a_trace, mesh, method=method, dest=dest, r_max=r_max,
-                        steplim=steplim, ctrl=ctrl)
+                        steplim=steplim, ctrl=ctrl, march_dtype=march_dtype)
     counts, images = accumulate_image_maps(
         out, spin, grid, r_disc, img_nx, img_ny, variant=variant, dest=dest,
         theta_lim=theta_lim, r_isco=r_isco, q1=q1, rb1=rb1, q2=q2, rb2=rb2, q3=q3,

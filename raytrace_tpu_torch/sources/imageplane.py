@@ -24,6 +24,7 @@ import dataclasses
 
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.geometry.kerr import metric_coeffs
 from raytrace_tpu_torch.rays import RayBatch, blank_batch
 
@@ -71,14 +72,14 @@ def _plane_ray(x, y, D, incl, phi0, a_trace, work_eps):
     value that dominates the cancellation noise of thetadot_sq in the dtype
     the *march* runs in (``work_eps``, its machine epsilon), and at 1e-4 r_g.
     """
-    sin_i, cos_i = torch.sin(incl), torch.cos(incl)
+    sin_i, cos_i = mathfn.sin(incl), mathfn.cos(incl)
     t = torch.zeros_like(x)
-    r = torch.sqrt(D * D + x * x + y * y)
+    r = mathfn.sqrt(D * D + x * x + y * y)
     theta = torch.arccos((D * cos_i + y * sin_i) / r)
     phi = phi0 + torch.arctan2(x, D * sin_i - y * cos_i)
 
     pr = D / r
-    ptheta = torch.sin(torch.arccos(D / r)) / r
+    ptheta = mathfn.sin(torch.arccos(D / r)) / r
     denom = x * x + (D * sin_i - y * cos_i) ** 2
     pphi = x * sin_i / denom
 
@@ -87,15 +88,15 @@ def _plane_ray(x, y, D, incl, phi0, a_trace, work_eps):
     A = g.g_tt
     B = 2.0 * g.g_tphi * pphi
     C = g.g_rr * pr * pr + g.g_thth * ptheta * ptheta + g.g_phph * pphi * pphi
-    disc = torch.sqrt(B * B - 4.0 * A * C)
+    disc = mathfn.sqrt(B * B - 4.0 * A * C)
     pt = (-B + disc) / (2.0 * A)
     pt = torch.where(pt < 0, (-B - disc) / (2.0 * A), pt)
 
     k = torch.ones_like(x)
     h = -x * sin_i
-    cos_t, tan_t = torch.cos(theta), torch.tan(theta)
+    cos_t, tan_t = mathfn.cos(theta), torch.tan(theta)
     noise = work_eps * (1.0 + (h / tan_t) ** 2 + (a_trace * cos_t) ** 2)
-    floor = torch.clamp_min(torch.sqrt(100.0 * noise), 1e-4)
+    floor = torch.clamp_min(mathfn.sqrt(100.0 * noise), 1e-4)
     ltheta = torch.where(torch.abs(y) < floor, torch.where(y < 0, -floor, floor), y)
     Q = ltheta * ltheta - (a_trace * cos_t) ** 2 + (h / tan_t) ** 2
 

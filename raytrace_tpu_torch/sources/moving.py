@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.geometry.gramschmidt import gram_schmidt_tetrad
 from raytrace_tpu_torch.geometry.kerr import constants_from_frame, metric_coeffs
 from raytrace_tpu_torch.rays import RayBatch, blank_batch
@@ -23,7 +24,7 @@ def radial_four_velocity(r, theta, v, spin):
     reference's motion = 1 redshift observer, raytracer.cpp:528-535). NaN
     where the frame is superluminal (g_tt + g_rr v^2 < 0)."""
     g = metric_coeffs(r, theta, spin)
-    ut = 1.0 / torch.sqrt(g.g_tt + g.g_rr * v * v)
+    ut = 1.0 / mathfn.sqrt(g.g_tt + g.g_rr * v * v)
     zero = torch.zeros_like(ut)
     return (ut, v * ut, zero, zero)
 
@@ -31,9 +32,9 @@ def radial_four_velocity(r, theta, v, spin):
 def _source_from_frame(pos, tet, spin, grid: PointSourceGrid, E, device, dtype) -> RayBatch:
     cosalpha, beta, dead = grid_angles(grid, device=device, dtype=dtype)
     alpha = torch.arccos(torch.clamp(cosalpha, -1.0, 1.0))
-    sin_a = torch.sin(alpha)
-    vx = sin_a * torch.cos(beta)
-    vy = sin_a * torch.sin(beta)
+    sin_a = mathfn.sin(alpha)
+    vx = sin_a * mathfn.cos(beta)
+    vy = sin_a * mathfn.sin(beta)
     vz = cosalpha
 
     t0, r0, th0, ph0 = (float(p) for p in pos)
