@@ -1379,7 +1379,7 @@ def trace_build_march(lib, rays, spin, kernel_kw, torch):
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.rt_march_launch(*march_kernel.pointers(buf), *scalars,
-                                  march_kernel._SCHEDULE_CODE["grid"], None, stream)
+                                  march_kernel._SCHEDULE_CODE["grid"], None, None, stream)
     check(err == 0, f"the trace build's launch failed with CUDA error {err}")
     return march_kernel.finish(r, buf, dest, spin, refine)
 

@@ -15,7 +15,10 @@ Output: 7 text columns (r, area, N_rays, flux, emis, <g>, <t>).
 
 runs on the card unless ``--device=cpu`` is given. ``show_progress = 1``
 shows the march's progress (``RT_PROGRESS``); ``RT_PROFILE=<dir>`` records
-a profiler trace of the march and binning. Under ``torchrun`` with more
+a profiler trace of the march and binning, and beside it, in
+``spans.json``, the port's spans (``rt.compute``, ``rt.source``,
+``rt.march`` ...) and each march launch's lane iterations on the trace's
+clock (``utils.profiling.profile_trace``). Under ``torchrun`` with more
 than one rank the plain variant splits its rays over the ranks
 (``parallel.sharded_emissivity_bins``) and rank 0 writes the file.
 """
@@ -41,6 +44,7 @@ from raytrace_tpu_torch.parallel import (RayMesh, auto_mesh, pad_rays, shard_ray
                                          sharded_emissivity_bins)
 from raytrace_tpu_torch.sources import PointSourceGrid, point_source
 from raytrace_tpu_torch.utils import app_phase
+from raytrace_tpu_torch.utils.profiling import span
 
 
 def disc_hit_mask(out, spin, r_isco=None):
@@ -96,47 +100,56 @@ def compute(
     and split over its ranks, each marches and bins its shard and one
     ``all_reduce`` merges the bins, so every rank returns the same columns;
     without one the process is a world of one on ``device``. The ``rd``
-    variant marches the whole batch on the mesh's device."""
-    device = require_device(device if mesh is None else mesh.device)
-    r_isco = isco_radius(spin)
-    if r_min is None or r_min < 0:
-        r_min = float(r_isco)
+    variant marches the whole batch on the mesh's device.
 
-    disc_r, disc_width, dr = bin_edges(r_min, r_disc, n_r, logbin_r, device="cpu")
-    # per-bin proper area in the disc material rest frame (emissivity.cpp:79)
-    areas = integrate_disc_area_bins(disc_r, disc_r + disc_width, spin)
+    Runs in the span ``rt.compute`` (``utils.profiling``): the bins' areas
+    on the host in ``rt.areas``, the source in ``rt.source``, the
+    redshifts in ``rt.redshift``, the march in ``rt.march``, the bins in
+    ``rt.bins``, the columns' copies to the host in ``rt.to_host``."""
+    with span("rt.compute"):
+        device = require_device(device if mesh is None else mesh.device)
+        r_isco = isco_radius(spin)
+        if r_min is None or r_min < 0:
+            r_min = float(r_isco)
 
-    # grid-cell count for the primary-flux normalisation (emissivity.cpp:61):
-    # the reference counts cells without the +1 fencepost
-    n_primary = ((grid.cosalphamax - grid.cosalpha0) / grid.dcosalpha) * (
-        (grid.betamax - grid.beta0) / grid.dbeta
-    )
+        with span("rt.areas"):
+            disc_r, disc_width, dr = bin_edges(r_min, r_disc, n_r, logbin_r, device="cpu")
+            # per-bin proper area in the disc material rest frame (emissivity.cpp:79)
+            areas = integrate_disc_area_bins(disc_r, disc_r + disc_width, spin)
 
-    rays = point_source(source, V, spin, grid, device=device)
-    if variant == "plain":
-        mesh = mesh or RayMesh(group=None, rank=0, size=1, device=device)
-        counts, sums = sharded_emissivity_bins(
-            shard_rays(pad_rays(rays, mesh.size), mesh), spin, mesh, V=V, r_min=r_min, dr=dr,
-            n_r=n_r, logbin_r=logbin_r, gamma=gamma, n_primary=n_primary, method=method,
-            r_max=r_max, steplim=steplim, ctrl=ctrl)
-    elif variant == "rd":
-        # destination-API route (emissivity_rd.cpp:99-116): FlatDisc surface,
-        # 4-velocity redshift, hit test on the landing polar angle
-        dest = FlatDisc(theta_lim)
-        rays = redshift_start(rays, spin, V)
-        rays = trace_auto(rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim,
-                          ctrl=ctrl)
-        rays = range_phi(rays)
-        rays = apply_redshift_dest(rays, spin, dest)
-        mask = (rays.ok & (rays.theta >= theta_lim - 1e-3) & (rays.redshift > 0)
-                & (rays.r >= r_isco))
-        counts, sums = radial_bin_profile(
-            rays.r, mask, emissivity_bin_weights(rays, gamma, n_primary),
-            r_min, dr, n_r, logbin_r,
+        # grid-cell count for the primary-flux normalisation (emissivity.cpp:61):
+        # the reference counts cells without the +1 fencepost
+        n_primary = ((grid.cosalphamax - grid.cosalpha0) / grid.dcosalpha) * (
+            (grid.betamax - grid.beta0) / grid.dbeta
         )
-    else:
-        raise ValueError(f"unknown variant {variant!r}")
-    return _columns(disc_r, areas, counts, sums)
+
+        rays = point_source(source, V, spin, grid, device=device)
+        if variant == "plain":
+            mesh = mesh or RayMesh(group=None, rank=0, size=1, device=device)
+            counts, sums = sharded_emissivity_bins(
+                shard_rays(pad_rays(rays, mesh.size), mesh), spin, mesh, V=V, r_min=r_min,
+                dr=dr, n_r=n_r, logbin_r=logbin_r, gamma=gamma, n_primary=n_primary,
+                method=method, r_max=r_max, steplim=steplim, ctrl=ctrl)
+        elif variant == "rd":
+            # destination-API route (emissivity_rd.cpp:99-116): FlatDisc surface,
+            # 4-velocity redshift, hit test on the landing polar angle
+            dest = FlatDisc(theta_lim)
+            with span("rt.redshift"):
+                rays = redshift_start(rays, spin, V)
+            rays = trace_auto(rays, spin, method=method, dest=dest, r_max=r_max,
+                              steplim=steplim, ctrl=ctrl)
+            with span("rt.redshift"):
+                rays = apply_redshift_dest(range_phi(rays), spin, dest)
+            mask = (rays.ok & (rays.theta >= theta_lim - 1e-3) & (rays.redshift > 0)
+                    & (rays.r >= r_isco))
+            counts, sums = radial_bin_profile(
+                rays.r, mask, emissivity_bin_weights(rays, gamma, n_primary),
+                r_min, dr, n_r, logbin_r,
+            )
+        else:
+            raise ValueError(f"unknown variant {variant!r}")
+        with span("rt.to_host"):
+            return _columns(disc_r, areas, counts, sums)
 
 
 def _columns(disc_r, areas, counts, sums) -> dict:

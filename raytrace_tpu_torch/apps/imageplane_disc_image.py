@@ -19,7 +19,10 @@ reference ``imageplane_disc_image*.cpp``):
 runs ``main`` on the card unless ``--device=cpu`` is given; ``main_rd`` and
 ``main_isco`` take the same arguments. ``show_progress = 1`` shows the
 march's progress (``RT_PROGRESS``); ``RT_PROFILE=<dir>`` records a profiler
-trace of the march and accumulation. Under ``torchrun`` with more than one
+trace of the march and accumulation, and beside it, in ``spans.json``, the
+port's spans (``rt.compute``, ``rt.source``, ``rt.march`` ...) and each
+march launch's lane iterations on the trace's clock
+(``utils.profiling.profile_trace``). Under ``torchrun`` with more than one
 rank the rays split over the ranks (``parallel.sharded_disc_image``) and
 rank 0 writes the file.
 """
@@ -46,6 +49,7 @@ from raytrace_tpu_torch.parallel import RayMesh, auto_mesh, sharded_disc_image
 from raytrace_tpu_torch.rays import RAY_STATUS_DEST
 from raytrace_tpu_torch.sources import ImagePlaneGrid, image_plane
 from raytrace_tpu_torch.utils import app_phase
+from raytrace_tpu_torch.utils.profiling import span
 
 
 def powerlaw3(r, q1, rb1, q2, rb2, q3):
@@ -83,11 +87,12 @@ def accumulate_image_maps(
     if r_isco is None:
         r_isco = isco_radius(spin)
 
-    if variant == "rd":
-        out = apply_redshift_dest(out, a_trace, dest, reverse=True)
-    else:
-        out = apply_redshift(out, a_trace, V=-1.0, reverse=True)
-    out = range_phi(out)
+    with span("rt.redshift"):
+        if variant == "rd":
+            out = apply_redshift_dest(out, a_trace, dest, reverse=True)
+        else:
+            out = apply_redshift(out, a_trace, V=-1.0, reverse=True)
+        out = range_phi(out)
 
     g = out.redshift
     if variant == "plain":
@@ -164,39 +169,46 @@ def compute(
     and its rays split over the ranks, each marches and accumulates its
     shard and one ``all_reduce`` merges the maps, so every rank returns the
     same maps; without one the process is a world of one on ``device``.
+
+    Runs in the span ``rt.compute`` (``utils.profiling``): the camera in
+    ``rt.source``, the redshifts in ``rt.redshift``, the march in
+    ``rt.march``, the pixels in ``rt.bins``, the maps' copies to the host
+    in ``rt.to_host``.
     """
-    device = require_device(device if mesh is None else mesh.device)
-    img_nx = img_nx or grid.nx
-    img_ny = img_ny or grid.ny
-    r_isco = isco_radius(spin)
+    with span("rt.compute"):
+        device = require_device(device if mesh is None else mesh.device)
+        img_nx = img_nx or grid.nx
+        img_ny = img_ny or grid.ny
+        r_isco = isco_radius(spin)
 
-    if variant == "plain":
-        dest = ThetaLimit(math.pi / 2)
-    elif variant == "rd":
-        dest = FlatDisc(theta_lim)
-    elif variant == "isco":
-        if method == "euler":
-            raise ValueError("Euler integrator not supported for the ISCO variant "
-                             "(imageplane_disc_image_isco.cpp:76-80)")
-        dest = DiscWithISCO(r_isco=r_isco, r_out=r_disc)
-    else:
-        raise ValueError(f"unknown variant {variant!r}")
+        if variant == "plain":
+            dest = ThetaLimit(math.pi / 2)
+        elif variant == "rd":
+            dest = FlatDisc(theta_lim)
+        elif variant == "isco":
+            if method == "euler":
+                raise ValueError("Euler integrator not supported for the ISCO variant "
+                                 "(imageplane_disc_image_isco.cpp:76-80)")
+            dest = DiscWithISCO(r_isco=r_isco, r_out=r_disc)
+        else:
+            raise ValueError(f"unknown variant {variant!r}")
 
-    if march_dtype is None:  # trace_auto marches a CUDA batch in float32 (ops/__init__.py)
-        march_dtype = torch.float32 if device.type == "cuda" else torch.float64
-    rays = image_plane(dist, incl_deg, grid, spin, phi0, device=device,
-                       work_dtype=march_dtype)
-    counts, images = sharded_disc_image(
-        rays, spin, mesh or RayMesh(group=None, rank=0, size=1, device=device), grid=grid,
-        r_disc=r_disc, img_nx=img_nx, img_ny=img_ny, method=method, r_max=1.1 * dist,
-        steplim=steplim, ctrl=ctrl, variant=variant, dest=dest, theta_lim=theta_lim,
-        r_isco=r_isco, q1=q1, rb1=rb1, q2=q2, rb2=rb2, q3=q3, flip_image=flip_image,
-        march_dtype=march_dtype)
-    counts_np = counts.cpu().numpy()
-    with np.errstate(divide="ignore", invalid="ignore"):
-        result = {k: v.cpu().numpy() / counts_np for k, v in images.items()}
-    result["counts"] = counts_np
-    return result
+        if march_dtype is None:  # trace_auto marches a CUDA batch in float32 (ops/__init__.py)
+            march_dtype = torch.float32 if device.type == "cuda" else torch.float64
+        rays = image_plane(dist, incl_deg, grid, spin, phi0, device=device,
+                           work_dtype=march_dtype)
+        counts, images = sharded_disc_image(
+            rays, spin, mesh or RayMesh(group=None, rank=0, size=1, device=device), grid=grid,
+            r_disc=r_disc, img_nx=img_nx, img_ny=img_ny, method=method, r_max=1.1 * dist,
+            steplim=steplim, ctrl=ctrl, variant=variant, dest=dest, theta_lim=theta_lim,
+            r_isco=r_isco, q1=q1, rb1=rb1, q2=q2, rb2=rb2, q3=q3, flip_image=flip_image,
+            march_dtype=march_dtype)
+        with span("rt.to_host"):
+            counts_np = counts.cpu().numpy()
+            with np.errstate(divide="ignore", invalid="ignore"):
+                result = {k: v.cpu().numpy() / counts_np for k, v in images.items()}
+        result["counts"] = counts_np
+        return result
 
 
 def _main(variant):

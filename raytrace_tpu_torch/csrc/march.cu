@@ -133,7 +133,8 @@ constexpr int SCHEDULE_REFILL = 1;
 constexpr int kRefillBlocks = 4;
 
 template <typename T>
-using KernelFn = void (*)(rt::Params<T>, rt::Fields<T>, int64_t, unsigned long long*);
+using KernelFn = void (*)(rt::Params<T>, rt::Fields<T>, int64_t, unsigned long long*,
+                          unsigned long long*);
 
 #if defined(RT_LAUNCH_TRACE)
 // The launch-trace side build (nvcc -DRT_LAUNCH_TRACE; chip_smoke.py phase
@@ -167,7 +168,7 @@ __device__ __forceinline__ int sm_id() {
 }
 
 template <typename T, int METHOD, int DEST>
-__device__ void march_traced(const rt::Params<T>& p, const rt::Fields<T>& f, int64_t i) {
+__device__ int march_traced(const rt::Params<T>& p, const rt::Fields<T>& f, int64_t i) {
   const LaunchTrace tr = g_trace;
   const int row = tr.traced[i];
   const T capture = rt::capture_radius(p);
@@ -187,6 +188,7 @@ __device__ void march_traced(const rt::Params<T>& p, const rt::Fields<T>& f, int
     tr.block[row] = static_cast<int>(blockIdx.x);
     tr.iters[row] = iters;
   }
+  return iters;
 }
 
 // The separatrix score of ray i, for phase 13's recall
@@ -233,19 +235,35 @@ __host__ __device__ constexpr bool traced() {
 }
 #endif
 
-// The grid launch: thread i marches ray i.
+// March ray i as this build's kernels do; returns its iterations.
+template <typename T, int METHOD, int DEST>
+__device__ __forceinline__ int march_ray(const rt::Params<T>& p, const rt::Fields<T>& f,
+                                         int64_t i) {
+#if defined(RT_LAUNCH_TRACE)
+  if constexpr (traced<T, METHOD, DEST>()) return march_traced<T, METHOD, DEST>(p, f, i);
+#endif
+  return rt::march_one<T, METHOD, DEST>(p, f, i);
+}
+
+// The lane-iteration counter of a launch: the warp's lanes sum their
+// iterations `it` and lane 0 adds the sum to *slot, one atomicAdd a warp.
+// Every lane of the warp calls it (blocks are whole warps).
+__device__ __forceinline__ void add_warp_iterations(unsigned long long* slot,
+                                                    unsigned long long it) {
+  for (int offset = 16; offset > 0; offset /= 2) it += __shfl_down_sync(0xffffffffu, it, offset);
+  if (threadIdx.x % 32 == 0) atomicAdd(slot, it);
+}
+
+// The grid launch: thread i marches ray i. With `iters` set, the launch
+// adds its rays' iterations to it (add_warp_iterations); null, nothing.
 template <typename T, int METHOD, int DEST>
 __global__ void __launch_bounds__(kThreads)
-    march_kernel(rt::Params<T> p, rt::Fields<T> f, int64_t n, unsigned long long*) {
+    march_kernel(rt::Params<T> p, rt::Fields<T> f, int64_t n, unsigned long long*,
+                 unsigned long long* iters) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-#if defined(RT_LAUNCH_TRACE)
-  if constexpr (traced<T, METHOD, DEST>()) {
-    march_traced<T, METHOD, DEST>(p, f, i);
-    return;
-  }
-#endif
-  rt::march_one<T, METHOD, DEST>(p, f, i);
+  int it = 0;
+  if (i < n) it = march_ray<T, METHOD, DEST>(p, f, i);
+  if (iters != nullptr) add_warp_iterations(iters, static_cast<unsigned long long>(it));
 }
 
 // The lane-refill schedule: a persistent warp takes the next 32 ray
@@ -253,20 +271,23 @@ __global__ void __launch_bounds__(kThreads)
 // shuffled to the others), each lane marches its ray to the end as thread
 // i does under the grid launch, and the warp takes 32 more once all its
 // lanes are done, until the counter passes n. Indices >= n are no ray.
+// `iters`, where set, takes the iterations of all the warp's rays at once.
 template <typename T, int METHOD, int DEST>
 __global__ void __launch_bounds__(kThreads, kRefillBlocks)
     march_refill_kernel(rt::Params<T> p, rt::Fields<T> f, int64_t n,
-                        unsigned long long* next) {
+                        unsigned long long* next, unsigned long long* iters) {
   const unsigned lane = threadIdx.x % 32;
   const unsigned long long count = static_cast<unsigned long long>(n);
+  unsigned long long it = 0;
   for (;;) {
     unsigned long long base = 0;
     if (lane == 0) base = atomicAdd(next, 32ull);
     base = __shfl_sync(0xffffffffu, base, 0);
-    if (base >= count) return;  // the same in every lane
+    if (base >= count) break;  // the same in every lane
     if (base + lane < count)
-      rt::march_one<T, METHOD, DEST>(p, f, static_cast<int64_t>(base + lane));
+      it += rt::march_one<T, METHOD, DEST>(p, f, static_cast<int64_t>(base + lane));
   }
+  if (iters != nullptr) add_warp_iterations(iters, it);
 }
 
 // The instantiation that runs the lane-refill schedule, the only one whose
@@ -343,7 +364,7 @@ template <typename T>
 cudaError_t launch(void* const* ptr, int64_t n, double spin, double r_max, double horizon,
                    int dest, const double* dest_params, int steplim, int max_iters,
                    const double* ctrl, int method, int schedule, unsigned long long* next,
-                   cudaStream_t stream) {
+                   unsigned long long* iters, cudaStream_t stream) {
   const KernelFn<T> kernel = pick_method<T>(method, dest, schedule);
   if (kernel == nullptr) return cudaErrorInvalidValue;
   const rt::Params<T> p =
@@ -357,7 +378,8 @@ cudaError_t launch(void* const* ptr, int64_t n, double spin, double r_max, doubl
     if (err != cudaSuccess) return err;
     if (resident < blocks) blocks = resident;
   }
-  void* args[] = {const_cast<rt::Params<T>*>(&p), const_cast<rt::Fields<T>*>(&f), &n, &next};
+  void* args[] = {const_cast<rt::Params<T>*>(&p), const_cast<rt::Fields<T>*>(&f), &n, &next,
+                  &iters};
   const cudaError_t err = cudaLaunchKernel(reinterpret_cast<const void*>(kernel), dim3(blocks),
                                            dim3(kThreads), args, 0, stream);
   const cudaError_t last = cudaGetLastError();  // also clears a refused launch's error
@@ -377,7 +399,9 @@ extern "C" {
 // dtype: 0 = float32, 1 = float64. ctrl holds the 11 StepControl values in
 // declaration order. schedule: 0 = grid launch, 1 = lane refill (built for
 // the refilled() instantiations only), whose `next` is a zeroed device
-// uint64 (the ray counter, fresh for every launch).
+// uint64 (the ray counter, fresh for every launch). iters: null, or a
+// device int64 that the launch adds its rays' iterations to (every trial,
+// accepted or rejected; the span recorder's launch counter).
 int rt_march_launch(void* t, void* r, void* theta, void* phi, void* pt, void* pr,
                     void* ptheta, void* pphi, void* k, void* h, void* Q,
                     void* rdot_sign, void* thetadot_sign, void* dt, void* emit,
@@ -389,7 +413,7 @@ int rt_march_launch(void* t, void* r, void* theta, void* phi, void* pt, void* pr
                     double maxtstep_rlim, double max_phistep, double min_step,
                     double rk45_tol, double horizon_eps, double safety, double fac_min,
                     double fac_max, int method, int dtype, int schedule, void* next,
-                    void* stream) {
+                    void* iters, void* stream) {
   void* const ptr[21] = {t, r, theta, phi, pt, pr, ptheta, pphi, k, h, Q,
                          rdot_sign, thetadot_sign, dt, emit, steps, status,
                          rdot_flips, eq_cross, r_was_positive, theta_was_positive};
@@ -400,11 +424,12 @@ int rt_march_launch(void* t, void* r, void* theta, void* phi, void* pt, void* pr
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   auto* counter = static_cast<unsigned long long*>(next);
+  auto* its = static_cast<unsigned long long*>(iters);
   const cudaError_t err =
       dtype == 0 ? launch<float>(ptr, n, spin, r_max, horizon, dest, dest_params, steplim,
-                                 max_iters, ctrl, method, schedule, counter, s)
+                                 max_iters, ctrl, method, schedule, counter, its, s)
       : dtype == 1 ? launch<double>(ptr, n, spin, r_max, horizon, dest, dest_params,
-                                    steplim, max_iters, ctrl, method, schedule, counter, s)
+                                    steplim, max_iters, ctrl, method, schedule, counter, its, s)
                    : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

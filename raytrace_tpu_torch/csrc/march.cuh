@@ -654,14 +654,16 @@ RT_HD void lane_store(const Fields<T>& f, Lane<T>& l) {
   f.theta_was_positive[i] = ray.twp;
 }
 
-// March ray i of the batch to termination (or max_iters) and store it.
+// March ray i of the batch to termination (or max_iters) and store it;
+// returns its iterations (every trial, accepted or rejected).
 template <typename T, int METHOD, int DEST>
-RT_HD void march_one(const Params<T>& p, const Fields<T>& f, int64_t i) {
+RT_HD int march_one(const Params<T>& p, const Fields<T>& f, int64_t i) {
   const T capture = capture_radius(p);
   Lane<T> l;
   lane_load<T, METHOD>(p, f, i, l);
   while (lane_running(p, l)) lane_step<T, METHOD, DEST>(p, capture, l);
   lane_store<T, METHOD>(f, l);
+  return l.it;
 }
 
 // Build the march scalars in the working type from the caller's doubles.

@@ -28,6 +28,7 @@ from raytrace_tpu_torch.ops.integrate import (
 )
 from raytrace_tpu_torch.ops.march_kernel import trace_kernel, trace_kernel_phased
 from raytrace_tpu_torch.ops.reductions import pixel_accumulate, radial_bin_profile
+from raytrace_tpu_torch.utils.profiling import span
 
 # trace_auto's routes so far, by name ("kernel" or "plain", and
 # "kernel_phased" or "plain_phased" when the march shows its progress):
@@ -73,24 +74,28 @@ def trace_auto(rays, spin, march_dtype=None, progress=None, **kw):
     them: ``trace_kernel_phased`` on the kernel route (counted as
     "kernel_phased"), ``trace_compacted(progress=True)`` on the plain one
     ("plain_phased"); the compiled analogue of the reference's in-loop bar
-    (raytracer.cpp:107-115)."""
+    (raytracer.cpp:107-115).
+
+    Either route runs in the span ``rt.march`` (``utils.profiling``)."""
     if progress is None:
         progress = os.environ.get("RT_PROGRESS", "0") == "1"
     method = kw.pop("method", "rk45")
-    if rays.r.is_cuda and kernel_supported(method, kw.get("dest")):
-        steplim = kernel_steplim(method, kw.pop("steplim", None))
-        dtype = torch.float32 if march_dtype is None else march_dtype
-        route, run = ("kernel_phased", trace_kernel_phased) if progress else ("kernel", trace_kernel)
-        routes[route] += 1
-        return run(rays, spin, method=method, steplim=steplim, march_dtype=dtype, **kw)
-    if march_dtype not in (None, rays.r.dtype):
-        raise ValueError(f"the plain march works in the batch's dtype {rays.r.dtype}, "
-                         f"not march_dtype={march_dtype}")
-    if progress:
-        routes["plain_phased"] += 1
-        return trace_compacted(rays, spin, method=method, progress=True, **kw)
-    routes["plain"] += 1
-    return trace(rays, spin, method=method, **kw)
+    with span("rt.march"):
+        if rays.r.is_cuda and kernel_supported(method, kw.get("dest")):
+            steplim = kernel_steplim(method, kw.pop("steplim", None))
+            dtype = torch.float32 if march_dtype is None else march_dtype
+            route, run = (("kernel_phased", trace_kernel_phased) if progress
+                          else ("kernel", trace_kernel))
+            routes[route] += 1
+            return run(rays, spin, method=method, steplim=steplim, march_dtype=dtype, **kw)
+        if march_dtype not in (None, rays.r.dtype):
+            raise ValueError(f"the plain march works in the batch's dtype {rays.r.dtype}, "
+                             f"not march_dtype={march_dtype}")
+        if progress:
+            routes["plain_phased"] += 1
+            return trace_compacted(rays, spin, method=method, progress=True, **kw)
+        routes["plain"] += 1
+        return trace(rays, spin, method=method, **kw)
 
 
 __all__ = [

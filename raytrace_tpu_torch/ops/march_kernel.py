@@ -40,6 +40,7 @@ from raytrace_tpu_torch.ops.integrate import (
     run_phases,
 )
 from raytrace_tpu_torch.rays import RAY_STATUS_TERMINAL, RayBatch
+from raytrace_tpu_torch.utils.profiling import launch_slot, span
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -77,13 +78,16 @@ def argtypes(host: bool = False):
     """ctypes argument list of rt_march_launch: 21 pointers, n, spin,
     r_max, horizon, the destination code and its four parameters, steplim,
     max_iters, the 11 StepControl values, method and dtype, then the
-    schedule, the counter and the stream; with
-    ``host``, that of the host build's rt_march_host, whose dtype is
-    followed by the number of emulated warps (0: ray after ray)."""
+    schedule, the ray counter, the lane-iteration slot (null: not counted)
+    and the stream; with ``host``, that of the host build's rt_march_host,
+    whose dtype is followed by the number of emulated warps (0: ray after
+    ray) and the lane-iteration slot."""
     c = ctypes
     types = [c.c_void_p] * 21 + [c.c_int64] + [c.c_double] * 3 + [c.c_int]
     types += [c.c_double] * 4 + [c.c_int] * 2 + [c.c_double] * 11 + [c.c_int, c.c_int]
-    return types + [c.c_int] if host else types + [c.c_int, c.c_void_p, c.c_void_p]
+    if host:
+        return types + [c.c_int, c.c_void_p]
+    return types + [c.c_int, c.c_void_p, c.c_void_p, c.c_void_p]
 
 
 def schedule_of(method: str, dest, march_dtype) -> str:
@@ -289,13 +293,15 @@ def _trace(rays: RayBatch, spin, schedule, *, method, dest, r_max, steplim, ctrl
     own, else "grid" or "refill". chip_smoke.py and a cuda test pass one
     to hold the two schedules against each other; nothing else does."""
     _need_cuda(rays, "trace_kernel")
-    rays, dest, buf, scalars = prepare(
-        rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim, ctrl=ctrl,
-        boundary=boundary, march_dtype=march_dtype, resume=resume, max_iters=max_iters,
-    )
+    with span("rt.march.prepare"):
+        rays, dest, buf, scalars = prepare(
+            rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim, ctrl=ctrl,
+            boundary=boundary, march_dtype=march_dtype, resume=resume, max_iters=max_iters,
+        )
     if rays.n_rays > 0:
         _launch(buf, scalars, schedule or schedule_of(method, dest, march_dtype))
-    return finish(rays, buf, dest, spin, refine_crossing)
+    with span("rt.march.finish"):
+        return finish(rays, buf, dest, spin, refine_crossing)
 
 
 def _need_cuda(rays: RayBatch, name: str) -> None:
@@ -333,10 +339,11 @@ def trace_kernel_phased(
     The lanes run their own rays, so no survivor gather is needed.
     """
     _need_cuda(rays, "trace_kernel_phased")
-    rays, dest, buf, scalars = prepare(
-        rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim, ctrl=ctrl,
-        boundary=boundary, march_dtype=march_dtype,
-    )
+    with span("rt.march.prepare"):
+        rays, dest, buf, scalars = prepare(
+            rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim, ctrl=ctrl,
+            boundary=boundary, march_dtype=march_dtype,
+        )
     schedule = schedule_of(method, dest, march_dtype)
 
     def phase(buf, iters):
@@ -347,22 +354,28 @@ def trace_kernel_phased(
     if rays.n_rays > 0:
         run_phases(buf, march_budget(steplim), phase_iters, phase,
                    label=f"march[{method}] {rays.n_rays} rays")
-    return finish(rays, buf, dest, spin, refine_crossing=True)
+    with span("rt.march.finish"):
+        return finish(rays, buf, dest, spin, refine_crossing=True)
 
 
 def _launch(buf: dict, scalars: list, schedule: str) -> None:
     """One launch of the kernel on ``prepare``'s buffers and scalars under
     ``schedule`` ("grid" or "refill"), on the current stream of their
-    device, counted in ``launches``; raises on a CUDA error."""
+    device, counted in ``launches``, in the span ``rt.march.launch``
+    (whose lane iterations the kernel counts while the recorder is on,
+    ``utils.profiling``); raises on a CUDA error."""
     global launches
-    lib = load()
-    device = buf["r"].device
-    # the refill schedule's ray counter, zero for every launch
-    counter = torch.zeros(1, dtype=torch.int64, device=device) if schedule == "refill" else None
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.rt_march_launch(*pointers(buf), *scalars, _SCHEDULE_CODE[schedule],
-                                  None if counter is None else counter.data_ptr(), stream)
+    with span("rt.march.launch"):
+        lib = load()
+        device = buf["r"].device
+        # the refill schedule's ray counter, zero for every launch
+        counter = (torch.zeros(1, dtype=torch.int64, device=device) if schedule == "refill"
+                   else None)
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = lib.rt_march_launch(*pointers(buf), *scalars, _SCHEDULE_CODE[schedule],
+                                      None if counter is None else counter.data_ptr(),
+                                      launch_slot(device), stream)
     if err != 0:
         raise RuntimeError(f"rt_march_launch failed with CUDA error {err}")
     launches += 1

@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from raytrace_tpu_torch.utils.profiling import span
+
 
 def radial_bin_index(r, r_min, dr, n_bins, logbin: bool):
     """Bin index under the reference convention (emissivity.cpp:59,105):
@@ -56,25 +58,28 @@ def masked_segment_sum(values, seg_ids, mask, n_bins):
 
 
 def radial_bin_profile(r, mask, weights: dict, r_min, dr, n_bins, logbin: bool):
-    """Bin per-ray weights into radial bins; returns (counts, {name: sum})."""
-    ids, in_range = radial_bin_index(r, r_min, dr, n_bins, logbin)
-    m = mask & in_range
-    counts = masked_segment_sum(torch.ones_like(r), ids, m, n_bins)
-    sums = {k: masked_segment_sum(v, ids, m, n_bins) for k, v in weights.items()}
-    return counts, sums
+    """Bin per-ray weights into radial bins; returns (counts, {name: sum}).
+    Runs in the span ``rt.bins``."""
+    with span("rt.bins"):
+        ids, in_range = radial_bin_index(r, r_min, dr, n_bins, logbin)
+        m = mask & in_range
+        counts = masked_segment_sum(torch.ones_like(r), ids, m, n_bins)
+        sums = {k: masked_segment_sum(v, ids, m, n_bins) for k, v in weights.items()}
+        return counts, sums
 
 
 def pixel_accumulate(ix, iy, mask, weights: dict, nx: int, ny: int):
     """Accumulate per-ray weights onto an (nx, ny) pixel grid; rays outside
     the mask or the grid go to the scrap bin (imageplane_disc_image.cpp:122-176).
-    Returns (counts, {name: image})."""
-    m = mask & (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
-    flat = ix.long() * ny + iy.long()
+    Returns (counts, {name: image}). Runs in the span ``rt.bins``."""
+    with span("rt.bins"):
+        m = mask & (ix >= 0) & (ix < nx) & (iy >= 0) & (iy < ny)
+        flat = ix.long() * ny + iy.long()
 
-    def scatter(v):
-        return masked_segment_sum(v, flat, m, nx * ny).reshape(nx, ny)
+        def scatter(v):
+            return masked_segment_sum(v, flat, m, nx * ny).reshape(nx, ny)
 
-    dtypes = [v.dtype for v in weights.values()] or [torch.float64]
-    dtype = functools.reduce(torch.promote_types, dtypes)
-    counts = scatter(torch.ones(flat.shape, dtype=dtype, device=flat.device))
-    return counts, {k: scatter(v) for k, v in weights.items()}
+        dtypes = [v.dtype for v in weights.values()] or [torch.float64]
+        dtype = functools.reduce(torch.promote_types, dtypes)
+        counts = scatter(torch.ones(flat.shape, dtype=dtype, device=flat.device))
+        return counts, {k: scatter(v) for k, v in weights.items()}

@@ -38,6 +38,7 @@ from raytrace_tpu_torch.ops.integrate import StepControl
 from raytrace_tpu_torch.ops.reductions import radial_bin_profile
 from raytrace_tpu_torch.ops.redshift import apply_redshift, range_phi, redshift_start
 from raytrace_tpu_torch.rays import BOOL_FIELDS, FLOAT_FIELDS, INT_FIELDS, RayBatch
+from raytrace_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,10 +235,12 @@ def sharded_emissivity_bins(
     rank."""
     from raytrace_tpu_torch.apps.emissivity import disc_hit_mask, emissivity_bin_weights
 
-    shard = redshift_start(rays, spin, V)
+    with span("rt.redshift"):
+        shard = redshift_start(rays, spin, V)
     out = sharded_trace(shard, spin, mesh, method=method, r_max=r_max, steplim=steplim,
                         ctrl=ctrl)
-    out = apply_redshift(range_phi(out), spin, V=-1.0)
+    with span("rt.redshift"):
+        out = apply_redshift(range_phi(out), spin, V=-1.0)
     counts, sums = radial_bin_profile(
         out.r, disc_hit_mask(out, spin), emissivity_bin_weights(out, gamma, n_primary),
         r_min, dr, n_r, logbin_r)
@@ -285,7 +288,8 @@ def sharded_disc_image(
         r_isco = isco_radius(spin)
     shard = shard_rays(pad_rays(rays, mesh.size), mesh)
     a_trace = -spin  # time reversal (imageplane.cpp:12)
-    shard = redshift_start(shard, a_trace, V=0.0, reverse=True)
+    with span("rt.redshift"):
+        shard = redshift_start(shard, a_trace, V=0.0, reverse=True)
     out = sharded_trace(shard, a_trace, mesh, method=method, dest=dest, r_max=r_max,
                         steplim=steplim, ctrl=ctrl, march_dtype=march_dtype)
     counts, images = accumulate_image_maps(

@@ -27,6 +27,7 @@ import torch
 from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.geometry.kerr import metric_coeffs
 from raytrace_tpu_torch.rays import RayBatch, blank_batch
+from raytrace_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,13 +166,17 @@ def image_plane(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, *, device,
     A tensor ``spin`` or ``incl_deg`` (a parameter under autograd) takes the
     all-traced construction instead: every field computed in ``dtype`` on
     ``device``, differentiable in both; ``work_dtype`` is then ``dtype``.
+
+    Runs in the span ``rt.source`` (``utils.profiling``).
     """
-    if isinstance(spin, torch.Tensor) or isinstance(incl_deg, torch.Tensor):
-        return _traced_batch(*grid.xy(device=device, dtype=dtype), dist, incl_deg, spin, phi0)
-    work_dtype = dtype if work_dtype is None else work_dtype
-    x, y = grid.xy(dtype=torch.float64)
-    return _seeded_batch(x, y, dist, incl_deg, spin, phi0, device=device, dtype=dtype,
-                         work_dtype=work_dtype)
+    with span("rt.source"):
+        if isinstance(spin, torch.Tensor) or isinstance(incl_deg, torch.Tensor):
+            return _traced_batch(*grid.xy(device=device, dtype=dtype), dist, incl_deg, spin,
+                                 phi0)
+        work_dtype = dtype if work_dtype is None else work_dtype
+        x, y = grid.xy(dtype=torch.float64)
+        return _seeded_batch(x, y, dist, incl_deg, spin, phi0, device=device, dtype=dtype,
+                             work_dtype=work_dtype)
 
 
 def image_plane_bundles(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, eps_frac=0.01,

@@ -15,6 +15,7 @@ import torch
 
 from raytrace_tpu_torch.geometry.kerr import constants_from_angles
 from raytrace_tpu_torch.rays import RayBatch, blank_batch
+from raytrace_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -106,6 +107,9 @@ def point_source(pos, V, spin, grid: PointSourceGrid, E=1.0, *, device,
       spin: black-hole spin.
       grid: direction grid; its top-edge rows are dead padding (steps = -1).
       E: emitted energy scale.
+
+    Runs in the span ``rt.source`` (``utils.profiling``).
     """
-    cosalpha, beta, dead = grid_angles(grid, device=device, dtype=dtype)
-    return point_source_from_angles(pos, V, spin, cosalpha, beta, dead, E)
+    with span("rt.source"):
+        cosalpha, beta, dead = grid_angles(grid, device=device, dtype=dtype)
+        return point_source_from_angles(pos, V, spin, cosalpha, beta, dead, E)

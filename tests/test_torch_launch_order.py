@@ -168,7 +168,7 @@ def _host_march(lib, rays, spin, dest, r_max, dtype):
     prepared, dest, buf, scalars = march_kernel.prepare(
         rays, spin, method="rk45", dest=dest, r_max=r_max, steplim=3000, ctrl=StepControl(),
         boundary=None, march_dtype=dtype)
-    assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars, 0) == 0
+    assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars, 0, None) == 0
     return march_kernel.finish(prepared, buf, dest, spin, refine_crossing=True)
 
 

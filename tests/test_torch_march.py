@@ -186,8 +186,8 @@ def test_kernel_wrapper_buffers_follow_launch_order():
     assert all(buf[f].dtype == torch.float32 for f in march_kernel.F_FIELDS)
     assert all(buf[f].dtype == torch.int32 for f in march_kernel.I_FIELDS)
     assert all(buf[f].dtype == torch.bool for f in march_kernel.B_FIELDS)
-    # then the schedule, the counter and the stream
-    assert len(scalars) + 21 + 3 == len(march_kernel.argtypes())
+    # then the schedule, the ray counter, the lane-iteration slot and the stream
+    assert len(scalars) + 21 + 4 == len(march_kernel.argtypes())
     assert isinstance(dest, ThetaLimit) and scalars[4:9] == [0, np.pi / 2, 0.0, 0.0, 0.0]
     assert scalars[10] == 100 + 25 + 16
     assert torch.equal(rays.r, r_before)

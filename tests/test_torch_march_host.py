@@ -92,7 +92,7 @@ def host_trace(lib, rays, spin, method, steplim, dtype=torch.float64, dest=None,
     prepared, dest, buf, scalars = march_kernel.prepare(
         rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim,
         ctrl=StepControl(), boundary=boundary, march_dtype=dtype)
-    assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars, 0) == 0
+    assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars, 0, None) == 0
     return march_kernel.finish(prepared, buf, dest, spin, refine_crossing=True)
 
 
@@ -392,7 +392,7 @@ def _host_buffers(lib, rays, spin, method, dtype, dest, kw, ctrl, steplim, max_i
         rays, spin, method=method, dest=dest, steplim=steplim, ctrl=ctrl,
         march_dtype=dtype, r_max=kw["r_max"], boundary=kw.get("boundary"))
     scalars[10] = max_iters
-    assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars, warps) == 0
+    assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars, warps, None) == 0
     return buf
 
 
