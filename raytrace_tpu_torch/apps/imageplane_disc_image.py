@@ -156,7 +156,9 @@ def compute(
     flux, r, phi, enshift, time, emis — count-normalised like the reference
     (imageplane_disc_image.cpp:166-176).
 
-    The batch is built, redshifted and binned in float64; the march goes
+    The batch is built, redshifted and binned in float64 on ``device``:
+    on a card ``image_plane`` seeds the camera there, with no per-ray host
+    work and no copy of the batch from the host. The march goes
     through ``trace_auto``: the CUDA kernel in ``march_dtype`` for a CUDA
     device (float32 when None, as the TPU kernel marches), the plain march
     in float64 otherwise (where ``march_dtype`` must be None or float64).

@@ -11,11 +11,18 @@ The constants of motion come from the analytic impact parameters
 (imageplane.cpp:100-113): k = 1, h = -x sin i, l_theta = y,
 Q = l_theta^2 - (a cos theta)^2 + (h / tan theta)^2.
 
-The initial conditions are computed in float64 on the host CPU and rounded
-once to the batch dtype: at dist = 10^4 the float32 ulp of r is ~10^-3 r_g,
-so a float32 chain of arccos and the null-condition quadratic would put
-several ulp of error on every start. The caustic apps' 5-ray bundles
-(``image_plane_bundles``) are seeded the same way.
+The initial conditions are computed in float64 on the batch's own device
+(the card for a CUDA batch, the host CPU for a CPU one) and rounded once to
+the batch dtype: at dist = 10^4 the float32 ulp of r is ~10^-3 r_g, so a
+float32 chain of arccos and the null-condition quadratic would put several
+ulp of error on every start. The scalars (D, the inclination's sine and
+cosine, phi0) stay float64 values on the host, as 0-d CPU tensors that
+torch treats as scalars beside a CUDA tensor; only the per-ray arithmetic
+runs on the device, and no batch is copied to it. On the card the plane
+points and r (``+``, ``*`` and a correctly rounded ``sqrt``) are bitwise
+the host's; the per-ray arccos, arctan2, tan, sin and cos are CUDA's and
+may differ from the host's by about an ulp of float64. The caustic apps' 5-ray
+bundles (``image_plane_bundles``) are seeded the same way.
 """
 
 from __future__ import annotations
@@ -106,25 +113,29 @@ def _plane_ray(x, y, D, incl, phi0, a_trace, work_eps):
     return t, r, theta, phi, (pt, pr, ptheta, pphi), (k, h, Q), rdot_sign, thetadot_sign
 
 
-def _seeded_batch(x, y, dist, incl_deg, spin, phi0, *, device, dtype, work_dtype) -> RayBatch:
-    """Seed the plane points (x, y) (float64 on the CPU) through _plane_ray
-    in float64 and round every field once to ``dtype`` on ``device``."""
+def _seeded_batch(x, y, dist, incl_deg, spin, phi0, *, dtype, work_dtype) -> RayBatch:
+    """Seed the float64 plane points (x, y) through _plane_ray on their own
+    device and round every field once to ``dtype`` there. dist, incl_deg and
+    phi0 become 0-d float64 CPU tensors: their arithmetic stays on the host,
+    whichever device (x, y) live on."""
     f64 = torch.float64
     deg = torch.tensor(float(incl_deg), dtype=f64)
     parts = _plane_ray(
         x, y, torch.tensor(float(dist), dtype=f64), deg * torch.pi / 180.0,
         torch.tensor(float(phi0), dtype=f64), -float(spin), torch.finfo(work_dtype).eps,
     )
-    return _batch_from_parts(parts, x, y, device=device, dtype=dtype)
+    return _batch_from_parts(parts, x, y, dtype=dtype)
 
 
-def _batch_from_parts(parts, x, y, *, device, dtype) -> RayBatch:
-    """Assemble a live batch on ``device`` from _plane_ray's parts, rounding
-    every field once to ``dtype`` (a no-op for the all-traced construction,
-    whose parts are already there and keep their graph)."""
+def _batch_from_parts(parts, x, y, *, dtype) -> RayBatch:
+    """Assemble a live batch on the device of (x, y) from _plane_ray's
+    parts, rounding every field once to ``dtype`` (a no-op for the
+    all-traced construction, whose parts are in that dtype already and keep
+    their graph)."""
     t, r, theta, phi, mom, consts, rdot_sign, thetadot_sign = parts
-    c = lambda v: v.to(device=device, dtype=dtype)
+    c = lambda v: v.to(dtype)
     n = x.shape[0]
+    device = x.device
     base = blank_batch(n, device=device, dtype=dtype)
     return base.replace(
         t=c(t), r=c(r), theta=c(theta), phi=c(phi),
@@ -146,7 +157,7 @@ def _traced_batch(x, y, dist, incl_deg, spin, phi0) -> RayBatch:
     a_trace = -(spin.to(x.device) if isinstance(spin, torch.Tensor) else float(spin))
     parts = _plane_ray(x, y, as_t(dist), as_t(incl_deg) * torch.pi / 180.0, as_t(phi0),
                        a_trace, torch.finfo(x.dtype).eps)
-    return _batch_from_parts(parts, x, y, device=x.device, dtype=x.dtype)
+    return _batch_from_parts(parts, x, y, dtype=x.dtype)
 
 
 def image_plane(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, *, device,
@@ -157,11 +168,12 @@ def image_plane(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, *, device,
     ``reverse=True`` to the redshift calls. ``rays.alpha``/``rays.beta``
     hold the plane (x, y) coordinates (imageplane.cpp:117-118).
 
-    Every field is computed in float64 on the CPU and rounded once to
-    ``dtype``. ``work_dtype`` is the dtype the march will run in (default
-    ``dtype``): its epsilon sets the knife-edge floor of the polar impact
-    parameter, so a float64 batch that ``trace_auto`` marches in float32 on
-    a card passes ``work_dtype=torch.float32``.
+    Every field is computed in float64 on ``device`` (on a card: no
+    per-ray host work, no copy of the batch to the card) and rounded once
+    to ``dtype`` there. ``work_dtype`` is the dtype the march will run in
+    (default ``dtype``): its epsilon sets the knife-edge floor of the polar
+    impact parameter, so a float64 batch that ``trace_auto`` marches in
+    float32 on a card passes ``work_dtype=torch.float32``.
 
     A tensor ``spin`` or ``incl_deg`` (a parameter under autograd) takes the
     all-traced construction instead: every field computed in ``dtype`` on
@@ -174,9 +186,8 @@ def image_plane(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, *, device,
             return _traced_batch(*grid.xy(device=device, dtype=dtype), dist, incl_deg, spin,
                                  phi0)
         work_dtype = dtype if work_dtype is None else work_dtype
-        x, y = grid.xy(dtype=torch.float64)
-        return _seeded_batch(x, y, dist, incl_deg, spin, phi0, device=device, dtype=dtype,
-                             work_dtype=work_dtype)
+        x, y = grid.xy(device=device, dtype=torch.float64)
+        return _seeded_batch(x, y, dist, incl_deg, spin, phi0, dtype=dtype, work_dtype=work_dtype)
 
 
 def image_plane_bundles(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, eps_frac=0.01,
@@ -188,17 +199,16 @@ def image_plane_bundles(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, ep
     (ray index = bundle slot * n_pixels + pixel), and eps.
 
     Seeded like ``image_plane``: plane coordinates and initial conditions
-    in float64, one rounding to ``dtype``, which is also the march dtype
-    and sets the knife-edge floor. A float32 march quantises the
+    in float64 on ``device``, one rounding to ``dtype``, which is also the
+    march dtype and sets the knife-edge floor. A float32 march quantises the
     satellites' start directions at the ulp of theta (~1.2e-7 rad): adequate
     up to dist ~ 10^3 at eps_frac = 0.01, hence float64 for the par files'
     dist 10^4.
     """
     eps = eps_frac * min(grid.dx, grid.dy)
     offsets = [(0.0, 0.0), (eps, 0.0), (-eps, 0.0), (0.0, eps), (0.0, -eps)]
-    xc, yc = grid.xy(dtype=torch.float64)
+    xc, yc = grid.xy(device=device, dtype=torch.float64)
     x = torch.cat([xc + ox for ox, _ in offsets])
     y = torch.cat([yc + oy for _, oy in offsets])
-    rays = _seeded_batch(x, y, dist, incl_deg, spin, phi0, device=device, dtype=dtype,
-                         work_dtype=dtype)
+    rays = _seeded_batch(x, y, dist, incl_deg, spin, phi0, dtype=dtype, work_dtype=dtype)
     return rays, eps
