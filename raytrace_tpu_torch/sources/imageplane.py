@@ -204,11 +204,14 @@ def image_plane_bundles(dist, incl_deg, grid: ImagePlaneGrid, spin, phi0=0.0, ep
     satellites' start directions at the ulp of theta (~1.2e-7 rad): adequate
     up to dist ~ 10^3 at eps_frac = 0.01, hence float64 for the par files'
     dist 10^4.
+
+    Runs in the span ``rt.source`` (``utils.profiling``).
     """
-    eps = eps_frac * min(grid.dx, grid.dy)
-    offsets = [(0.0, 0.0), (eps, 0.0), (-eps, 0.0), (0.0, eps), (0.0, -eps)]
-    xc, yc = grid.xy(device=device, dtype=torch.float64)
-    x = torch.cat([xc + ox for ox, _ in offsets])
-    y = torch.cat([yc + oy for _, oy in offsets])
-    rays = _seeded_batch(x, y, dist, incl_deg, spin, phi0, dtype=dtype, work_dtype=dtype)
-    return rays, eps
+    with span("rt.source"):
+        eps = eps_frac * min(grid.dx, grid.dy)
+        offsets = [(0.0, 0.0), (eps, 0.0), (-eps, 0.0), (0.0, eps), (0.0, -eps)]
+        xc, yc = grid.xy(device=device, dtype=torch.float64)
+        x = torch.cat([xc + ox for ox, _ in offsets])
+        y = torch.cat([yc + oy for _, oy in offsets])
+        rays = _seeded_batch(x, y, dist, incl_deg, spin, phi0, dtype=dtype, work_dtype=dtype)
+        return rays, eps
