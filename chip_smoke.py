@@ -218,6 +218,7 @@ the disc image's, under disc_image).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import shutil
@@ -1701,7 +1702,9 @@ class Recorder:
     keywords and result), the milliseconds all its calls took on the card
     (CUDA events around each call, synchronised after it, as the app
     synchronises when it reads the result back) and each call's method and
-    kernel launches."""
+    kernel launches. A call with ``ranges`` is recorded once its last range
+    has landed: its result is then the landed pieces laid end to end, and
+    its milliseconds run to that landing."""
 
     def __init__(self, module, name="trace_auto"):
         self.module, self.name = module, name
@@ -1716,17 +1719,33 @@ class Recorder:
 
         real = self.real = getattr(self.module, self.name)
 
-        def route(*args, **kw):
-            start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            before = march_kernel.launches
-            start.record()
-            out = real(*args, **kw)
+        def record(start, before, args, kw, out):
+            stop = torch.cuda.Event(enable_timing=True)
             stop.record()
             torch.cuda.synchronize()
             self.ms += start.elapsed_time(stop)
             self.calls.append((kw.get("method"), march_kernel.launches - before))
             self.seen.update(rays=args[0] if args else None, spin=args[1] if len(args) > 1
                              else None, kw=dict(kw), out=out)
+
+        def landing(landed, start, before, args, kw):
+            parts = {}
+            for k0, k1, out, stream in landed:
+                parts[k0] = out
+                yield k0, k1, out, stream
+            ordered = [parts[k] for k in sorted(parts)]
+            record(start, before, args, kw, ordered[0].replace(**{
+                f.name: torch.cat([getattr(p, f.name) for p in ordered])
+                for f in dataclasses.fields(ordered[0])}))
+
+        def route(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            before = march_kernel.launches
+            start.record()
+            out = real(*args, **kw)
+            if kw.get("ranges") is not None:
+                return landing(out, start, before, args, kw)
+            record(start, before, args, kw, out)
             return out
 
         setattr(self.module, self.name, route)
@@ -2810,8 +2829,10 @@ def resume_shard_phases(launches, torch):
         launches["rk45_theta"] += phases
         check("[emissivity plain march+bin] ..." in proc.stderr and phases > 0,
               f"20c: no phase line or bar on stderr:\n{proc.stderr[-2000:]}")
-        traces = list(prof.rglob("*.json"))
-        check(len(traces) == 1, f"20c: profile directory holds {traces}")
+        # the profiler's trace, and beside it the port's spans (utils.profiling)
+        traces = list(prof.rglob("trace.json"))
+        check(len(traces) == 1 and (traces[0].parent / "spans.json").is_file(),
+              f"20c: profile directory holds {list(prof.rglob('*.json'))}")
         idle = device_idle(traces[0])
         check(idle["march_kernels"] == phases,
               f"20c: the trace names {idle['march_kernels']} march kernels for {phases} phases")
@@ -3317,7 +3338,8 @@ def main() -> int:
 
     runs = {}
     with Phase("12 caustic full width"):
-        # caustics.compute marches through the sharded layer's trace_auto
+        # caustics.compute marches through the sharded layer's trace_auto, on
+        # one card in pixel ranges as they land (seen: the ranges end to end)
         with Recorder(sharding) as rec, tempfile.TemporaryDirectory() as tmp:
             seen = rec.seen  # what the main path marched, and how
             for target, extra, variant in CAUSTIC_RUNS:
@@ -3339,6 +3361,7 @@ def main() -> int:
                 method = kw.pop("method")
                 march_dtype = kw.pop("march_dtype")
                 kw.pop("steplim")
+                kw.pop("ranges")
                 kind = {"DiscWithISCO": "isco", "FlatPlane": "plane",
                         "ThetaLimit": "theta"}[type(kw["dest"]).__name__]
                 check(rc == 0, f"{CAUSTIC_MAINS[target]} returned {rc}")

@@ -2,11 +2,12 @@
 march kernel and its plain version, and the differentiable march and
 observables (``ops/diff.py``)."""
 
+import math
 import os
 
 import torch
 
-from raytrace_tpu_torch.destinations import KERNEL_DESTINATIONS
+from raytrace_tpu_torch.destinations import KERNEL_DESTINATIONS, ThetaLimit
 from raytrace_tpu_torch.ops.diff import (
     chaos_weight,
     emissivity_binned_profile,
@@ -26,7 +27,12 @@ from raytrace_tpu_torch.ops.integrate import (
     trace,
     trace_compacted,
 )
-from raytrace_tpu_torch.ops.march_kernel import trace_kernel, trace_kernel_phased
+from raytrace_tpu_torch.ops.march_kernel import (
+    schedule_of,
+    trace_kernel,
+    trace_kernel_phased,
+    trace_kernel_ranges,
+)
 from raytrace_tpu_torch.ops.reductions import pixel_accumulate, radial_bin_profile
 from raytrace_tpu_torch.utils.profiling import span
 
@@ -54,7 +60,7 @@ def kernel_steplim(method, steplim=None) -> int:
     return steplim
 
 
-def trace_auto(rays, spin, march_dtype=None, progress=None, **kw):
+def trace_auto(rays, spin, march_dtype=None, progress=None, ranges=None, **kw):
     """March on the batch's device: a CUDA batch towards a destination the
     kernel implements (``kernel_supported``) goes to the march kernel (with
     ``kernel_steplim``); any other batch, and a CUDA batch towards any
@@ -76,6 +82,16 @@ def trace_auto(rays, spin, march_dtype=None, progress=None, **kw):
     ("plain_phased"); the compiled analogue of the reference's in-loop bar
     (raytracer.cpp:107-115).
 
+    ``ranges`` (ray offsets from 0 to the batch's count, no range empty)
+    asks for the batch in ranges as they land, for a caller that works on
+    each while the others march: the return is then an iterator of (k0,
+    k1, out, stream), ``out`` the marched rays [ranges[k0], ranges[k1]) of
+    the ranges k0 up to k1 and ``stream`` the one it was made on (None on
+    the CPU). On the kernel route under the grid launch with no progress
+    bar each range marches on its own stream, and the ranges come as they
+    land (``trace_kernel_ranges``); elsewhere the batch marches whole, as
+    without ``ranges``, and comes as one piece.
+
     Either route runs in the span ``rt.march`` (``utils.profiling``)."""
     if progress is None:
         progress = os.environ.get("RT_PROGRESS", "0") == "1"
@@ -84,18 +100,33 @@ def trace_auto(rays, spin, march_dtype=None, progress=None, **kw):
         if rays.r.is_cuda and kernel_supported(method, kw.get("dest")):
             steplim = kernel_steplim(method, kw.pop("steplim", None))
             dtype = torch.float32 if march_dtype is None else march_dtype
+            dest = kw.get("dest") or ThetaLimit(math.pi / 2)
+            if (ranges is not None and not progress
+                    and schedule_of(method, dest, dtype) == "grid"):
+                routes["kernel"] += 1
+                return trace_kernel_ranges(rays, spin, ranges, method=method, steplim=steplim,
+                                           march_dtype=dtype, **kw)
             route, run = (("kernel_phased", trace_kernel_phased) if progress
                           else ("kernel", trace_kernel))
             routes[route] += 1
-            return run(rays, spin, method=method, steplim=steplim, march_dtype=dtype, **kw)
-        if march_dtype not in (None, rays.r.dtype):
-            raise ValueError(f"the plain march works in the batch's dtype {rays.r.dtype}, "
-                             f"not march_dtype={march_dtype}")
-        if progress:
-            routes["plain_phased"] += 1
-            return trace_compacted(rays, spin, method=method, progress=True, **kw)
-        routes["plain"] += 1
-        return trace(rays, spin, method=method, **kw)
+            out = run(rays, spin, method=method, steplim=steplim, march_dtype=dtype, **kw)
+        else:
+            if march_dtype not in (None, rays.r.dtype):
+                raise ValueError(f"the plain march works in the batch's dtype {rays.r.dtype}, "
+                                 f"not march_dtype={march_dtype}")
+            if progress:
+                routes["plain_phased"] += 1
+                out = trace_compacted(rays, spin, method=method, progress=True, **kw)
+            else:
+                routes["plain"] += 1
+                out = trace(rays, spin, method=method, **kw)
+    return out if ranges is None else _in_order(out, ranges)
+
+
+def _in_order(out, ranges):
+    """``trace_auto``'s ranges of a batch marched whole: one piece."""
+    yield 0, len(ranges) - 1, out, (torch.cuda.current_stream(out.r.device) if out.r.is_cuda
+                                    else None)
 
 
 __all__ = [
@@ -121,5 +152,6 @@ __all__ = [
     "trace_compacted",
     "trace_kernel",
     "trace_kernel_phased",
+    "trace_kernel_ranges",
     "trace_scan",
 ]

@@ -26,6 +26,7 @@ import math
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -302,6 +303,115 @@ def _trace(rays: RayBatch, spin, schedule, *, method, dest, r_max, steplim, ctrl
         _launch(buf, scalars, schedule or schedule_of(method, dest, march_dtype))
     with span("rt.march.finish"):
         return finish(rays, buf, dest, spin, refine_crossing)
+
+
+# the host's pause between two looks at the ranges still marching
+_POLL_S = 1e-4
+
+# ``trace_kernel_ranges``'s streams, by device: one a range, kept for the process
+_STREAMS = {}
+
+
+def _side_streams(device, k: int) -> list:
+    """``k`` streams of ``device`` from the process's pool (``_STREAMS``)."""
+    pool = _STREAMS.setdefault(device, [])
+    pool.extend(torch.cuda.Stream(device) for _ in range(k - len(pool)))
+    return pool[:k]
+
+
+def trace_kernel_ranges(
+    rays: RayBatch,
+    spin,
+    cuts,
+    *,
+    method: str = "rk4",
+    dest=None,
+    r_max=1000.0,
+    steplim: int = 30_000,
+    ctrl: StepControl = StepControl(),
+    boundary=None,
+    march_dtype=torch.float32,
+):
+    """``trace_kernel`` in ranges that land one at a time, so that the host
+    can work on each range while the others still march: range k is the
+    contiguous run ``rays[cuts[k]:cuts[k + 1]]`` (``cuts`` from 0 to the
+    batch's ray count, no range empty), and the instantiation must run
+    under the grid launch (``schedule_of``).
+
+    The fresh-propagation set-up runs once on the whole batch
+    (``prepare``); each range is then one launch on a slice of the buffers,
+    on a stream of its own (``_side_streams``), followed there by an event
+    and nothing else. Thread i of a launch marches its slice's ray i as the
+    whole batch's launch marches it, so every ray has the single launch's
+    bits. The launches are queued before this returns.
+
+    Returns an iterator of (k0, k1, out, stream) in the order the ranges
+    land, not in launch order: ranges k0 up to k1 landed together (their
+    events fired by the same look), and ``out`` is their rays
+    [cuts[k0], cuts[k1]) finished (``finish``, in the span
+    ``rt.march.finish``), queued on ``stream``, where the caller queues
+    what reads it; so ranges that land at once cost the host one step.
+    Work queued behind a launch waits on it and holds up what is queued
+    after it on the same host connection (CUDA_DEVICE_MAX_CONNECTIONS, 8
+    by default, shared by the streams), so nothing is queued on a range's
+    stream before it has landed. The iterator synchronises every stream
+    when it ends or is closed, before the buffers are freed."""
+    _need_cuda(rays, "trace_kernel_ranges")
+    cuts = list(cuts)
+    if cuts[0] != 0 or cuts[-1] != rays.n_rays or any(a >= b for a, b in zip(cuts, cuts[1:])):
+        raise ValueError(f"ranges must run from 0 to {rays.n_rays} rays, none empty")
+    if dest is None:
+        dest = ThetaLimit(math.pi / 2)
+    if schedule_of(method, dest, march_dtype) != "grid":
+        raise ValueError(f"{method} towards {type(dest).__name__} in {march_dtype} runs under "
+                         "the refill schedule; trace_kernel_ranges takes grid launches only")
+    landed = _landing(rays, spin, cuts, method=method, dest=dest, r_max=r_max,
+                      steplim=steplim, ctrl=ctrl, boundary=boundary, march_dtype=march_dtype)
+    next(landed)  # prepares and launches every range
+    return landed
+
+
+def _landing(rays, spin, cuts, *, method, dest, r_max, steplim, ctrl, boundary, march_dtype):
+    """``trace_kernel_ranges``: yields None once every range is launched,
+    then each run of ranges as it lands."""
+    with span("rt.march.prepare"):
+        rays, dest, buf, scalars = prepare(
+            rays, spin, method=method, dest=dest, r_max=r_max, steplim=steplim, ctrl=ctrl,
+            boundary=boundary, march_dtype=march_dtype)
+    device = rays.r.device
+    streams = _side_streams(device, len(cuts) - 1)
+    try:
+        prepared = torch.cuda.Event()
+        prepared.record(torch.cuda.current_stream(device))
+        events = [torch.cuda.Event() for _ in streams]
+        for s, event, a, b in zip(streams, events, cuts, cuts[1:]):
+            s.wait_event(prepared)
+            with torch.cuda.stream(s):
+                _launch({f: v[a:b] for f, v in buf.items()}, [b - a] + scalars[1:], "grid")
+            event.record(s)
+        yield None
+
+        pending = list(range(len(streams)))
+        while pending:
+            done = [k for k in pending if events[k].query()]
+            if not done:
+                time.sleep(_POLL_S)
+                continue
+            pending = [k for k in pending if k not in done]
+            # the runs of adjacent ranges among those landed, each one slice
+            firsts = [k for k in done if k - 1 not in done]
+            for k0 in firsts:
+                k1 = k0 + 1
+                while k1 in done:
+                    k1 += 1
+                s, a, b = streams[k0], cuts[k0], cuts[k1]
+                with torch.cuda.stream(s), span("rt.march.finish"):
+                    out = finish(rays[a:b], {f: v[a:b] for f, v in buf.items()}, dest, spin,
+                                 True)
+                yield k0, k1, out, s
+    finally:
+        for s in streams:
+            s.synchronize()
 
 
 def _need_cuda(rays: RayBatch, name: str) -> None:

@@ -27,7 +27,12 @@ also writes it to a file):
 - ``breakdown``: the harness's breakdown, its gaps labelled by the program's
   spans too;
 - ``tracing_overhead``: the traced window's rays a second over the
-  untraced one's, less one.
+  untraced one's, less one;
+- ``maps_hidden_share``: the share of the jobs' ``rt.maps`` host time that
+  passed before their job's last march kernel ended (the caustic map's
+  host maps hidden behind its march), ``maps_hidden_by_row`` the same by
+  row; ``late_ranges_per_job``: the pixel ranges a job mapped after its
+  last march kernel ended, and ``late_ranges_by_row`` each row's counts.
 
 A reader of the benchmark's own would take these from the same
 recording; this script leaves the benchmark's files as they are.
@@ -83,6 +88,41 @@ def idle_by_span(gaps, spans) -> tuple:
     return inner, within
 
 
+def maps_hidden(window: harness.Window, program: list) -> dict:
+    """The host maps against the march, job by job: the end of the job's
+    last march kernel (the last to end of those that started inside its
+    ``job:<i>`` span) and the ``rt.maps`` spans that started inside it.
+    The part of each span before that end is hidden; a range is late when
+    its maps end after it. The ranges are a job's ``rt.maps`` spans but the
+    last (the passes over the whole map), each the maps of the ranges that
+    landed together; a job with one span (the single-batch route) maps its
+    one range in it."""
+    hidden, total, rows = 0.0, 0.0, {}
+    for job, start, end in window.spans:
+        if not job.startswith("job:"):
+            continue
+        ends = [e for name, kind, s, e in window.events
+                if kind == "kernel" and is_march(name) and start <= s < end]
+        maps = sorted((s, e) for name, _, s, e in program if name == "rt.maps" and start <= s < end)
+        if not ends or not maps:
+            continue
+        last = max(ends)
+        h = sum(max(0.0, min(e, last) - s) for s, e in maps)
+        t = sum(e - s for s, e in maps)
+        late = sum(e > last for s, e in (maps[:-1] if len(maps) > 1 else maps))
+        hidden, total = hidden + h, total + t
+        row = rows.setdefault(job, [0.0, 0.0, []])
+        row[0], row[1] = row[0] + h, row[1] + t
+        row[2].append(late)
+    lates = [n for row in rows.values() for n in row[2]]
+    return {
+        "maps_hidden_share": hidden / total if total else None,
+        "maps_hidden_by_row": {job: h / t for job, (h, t, _) in sorted(rows.items()) if t},
+        "late_ranges_per_job": sum(lates) / len(lates) if lates else None,
+        "late_ranges_by_row": {job: sorted(set(n)) for job, (_, _, n) in sorted(rows.items())},
+    }
+
+
 def report(window: harness.Window, program: list, launches: list, uncounted: int) -> dict:
     """The numbers above, from a traced window, the program's spans on its
     clock as (name, parent, start s, end s) and the launches as (span
@@ -125,6 +165,7 @@ def report(window: harness.Window, program: list, launches: list, uncounted: int
         "idle_by_span": {k: 1e3 * v / n for k, v in sorted(inner.items(), key=lambda x: -x[1])},
         "breakdown": harness.breakdown(harness.Window(window.events, labelled, window.jobs,
                                                       window.window_s)),
+        **maps_hidden(window, program),
     }
 
 

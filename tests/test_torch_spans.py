@@ -347,3 +347,35 @@ def test_span_window_report_on_a_hand_built_window():
     assert out["march_iters_per_job"] == 200
     assert out["march_ns_per_iter"] == pytest.approx(1e9 * 0.402 / 400)
     assert (out["launches_counted"], out["launches_uncounted"]) == (2, 1)
+
+
+def test_span_window_maps_hidden_on_a_hand_built_window():
+    """``span_window.maps_hidden``: of two jobs, one maps both its ranges
+    before its last march kernel ends and one maps a range across that
+    end; each job's last ``rt.maps`` is the pass over the whole map. The
+    hidden share is the ``rt.maps`` time before each job's last march
+    kernel ended over all its ``rt.maps`` time; the late ranges, those
+    whose maps end after it."""
+    import span_window
+    from portbench import harness
+
+    march = "void march_kernel<double, 2, 2>(rt::Params<double>)"
+    events = [(march, "kernel", 0.0, 0.1), (march, "kernel", 0.05, 0.6),
+              ("Memcpy DtoH (Device -> Pinned)", "memcpy", 0.15, 0.16),
+              (march, "kernel", 1.0, 1.1), (march, "kernel", 1.05, 1.5)]
+    spans = [("job:0", 0.0, 1.0), ("job:1", 1.0, 2.0)]
+    program = [("rt.compute", -1, 0.0, 0.7), ("rt.maps", 0, 0.2, 0.3),
+               ("rt.maps", 0, 0.35, 0.45), ("rt.maps", 0, 0.62, 0.65),
+               ("rt.compute", -1, 1.0, 1.7), ("rt.maps", 4, 1.2, 1.3),
+               ("rt.maps", 4, 1.45, 1.55), ("rt.maps", 4, 1.56, 1.6)]
+    window = harness.Window(events, spans, 2, 2.0)
+    out = span_window.report(window, program, [], 0)
+    assert out["maps_hidden_share"] == pytest.approx((0.2 + 0.15) / (0.23 + 0.24))
+    assert out["maps_hidden_by_row"] == {"job:0": pytest.approx(0.2 / 0.23),
+                                         "job:1": pytest.approx(0.15 / 0.24)}
+    assert out["late_ranges_per_job"] == 0.5
+    assert out["late_ranges_by_row"] == {"job:0": [0], "job:1": [1]}
+    # a single-batch job: its one rt.maps, after the march, is its one late range
+    single = span_window.maps_hidden(
+        harness.Window(events[:2], spans[:1], 1, 1.0), [("rt.maps", -1, 0.61, 0.8)])
+    assert single["maps_hidden_share"] == 0.0 and single["late_ranges_per_job"] == 1
