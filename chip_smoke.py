@@ -80,20 +80,10 @@ script exits non-zero:
      the 64 longest rays marched alone, each in its own warp (the batch's
      latency floor), and the bound (time_schedules). On the three float32
      RK45 theta and isco batches (emissivity, disc image isco and theta)
-     the launch order, tried and not taken, so the launcher has none
-     (time_orders): the launch-trace build in the natural and the
-     long-first order (the batch gathered into it, the result gathered
-     back; when the 64 longest rays start and end, their latency a step
-     while the bulk runs and after it, their warp-mates, their SMs) and on
-     those rays alone; the recall of the rays that outlive the bulk by the
-     separatrix score (the trace build's score kernel) at K = 0.01%, 0.1%
-     and 1% of the batch; the launcher's kernel in the natural order and in
-     the long-first one, its head one a block and one a warp, timed in
-     turns (in order, then reversed), bitwise alike in all 21 fields, and
-     the order's overhead; then the score kernel against its plain
-     version, bit for bit, with its times and bound (score_check). The
-     score kernel's launches are zeroed and read around every main path's
-     run, as the march kernel's are, and must stay 0;
+     the launch-trace build, bitwise the launcher's kernel: when the 64
+     longest rays start and end, their latency a step while the bulk runs
+     and after it, their warp-mates, their SMs, and those rays alone
+     (trace_longest);
  14. slice parity (slice_phases): the kernel against the plain march,
      euler/rk4/rk45 x theta in float32 and float64 at steplim 3000, on four
      batches built as the slice's apps build them (slice_batch): a jet
@@ -197,7 +187,7 @@ first STUCK_STEPLIM steps, the kernel under the launcher's schedule and,
 where that is the lane-refill schedule, bitwise the grid launch's. On the
 card the plain march replays each compaction epoch's iteration as a CUDA
 graph (ops/integrate.py).
-The last lines are phase 13's launch-order record, phase 19's, phase 20's,
+The last lines are phase 13's launch-trace record, phase 19's, phase 20's,
 the per-kernel JSON record and the device record.
 A record's ms is its main path's batch at the CLI's steplim under the
 schedule the launcher gives it; bound_ms the largest of its issue times
@@ -209,10 +199,7 @@ on which the bound stands, and issue_per_step_most the most (loop_issue);
 latency_bound_ms the longest ray's steps times one step's latency,
 lone_floor_ms the 64 longest rays marched alone; a
 record's launches include phase 20's (phased, sharded and CLI runs);
-rk45 x theta f32 also reject_share and bound_ms_with_trials (phase 18);
-rk45 x theta and isco f32 the launch order's figures (order "natural",
-natural_ms, long_first_ms, recall, order_overhead_ms; the theta one also
-the disc image's, under disc_image).
+rk45 x theta f32 also reject_share and bound_ms_with_trials (phase 18).
 """
 
 from __future__ import annotations
@@ -817,7 +804,7 @@ def start_probe_builds(tmp):
     """nvcc, started at once, of what phase 1 builds beside the library:
     csrc/march.cu as a cubin with the march kernel's flags (for step_issue),
     the guarded-trig check (TRIG_CHECK, for trig_check) and the
-    launch-trace side build (TRACE_LIB, for phase 13's time_orders)."""
+    launch-trace side build (TRACE_LIB, for phase 13's trace_longest)."""
     from raytrace_tpu_torch.ops import march_kernel
 
     lib_only = ("-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -1255,36 +1242,22 @@ def time_schedules(path, variant, rays, spin, kw, method, dtype, torch, steplim=
                 n_rays=rays.n_rays, lone_floor_ms=floor_ms)
 
 
-# Phase 13's launch orders, tried on the float32 RK45 theta and isco
-# kernels and not taken: the launcher marches every batch in its natural
-# order, and the long-first order lives here alone. The shares of the
-# batch at which the separatrix score's recall is read; the rays the
-# launch-trace build follows (the longest by step count) and the timer
-# samples it keeps of each; the share of the batch whose end marks the end
-# of the bulk; the side build, beside the library in march_kernel.BUILD_DIR.
-RECALL_SHARES = (1e-4, 1e-3, 1e-2)
+# Phase 13's launch trace of the float32 RK45 theta and isco kernels: the
+# rays the launch-trace build follows (the longest by step count) and the
+# timer samples it keeps of each; the share of the batch whose end marks
+# the end of the bulk; the side build, beside the library in
+# march_kernel.BUILD_DIR; the variants (float32) whose main-path batches
+# phase 13 traces.
 TRACE_ROWS = 64
 TRACE_SAMPLES = 1024
 BULK_SHARE = 0.999
 TRACE_LIB = "libraytrace_march_trace.so"
-# the variants (float32) whose main-path batches phase 13 times in both orders
-ORDERED = ("rk45_theta", "rk45_isco")
-# the long-first order's head: this share of the batch's live rays, those
-# of smallest |score|, each at lane 0 of a block (128 slots) or of a warp
-# (32 slots)
-LONG_FIRST_SHARE = 1e-3
-PLACEMENT_STRIDE = {"block": 128, "warp": 32}
-# the separatrix score's radius grid (ops/diff.py::separatrix_score)
-SCORE_GRID = 64
-# the score kernel's launches: "launches" counted where separatrix_scores
-# launches it, zeroed with march_kernel.launches before each main path's
-# run and added to "main" after it
-SCORE = {"launches": 0, "main": 0}
+TRACED = ("rk45_theta", "rk45_isco")
 
 
 def open_trace_library(path=None):
     """The launch-trace side build (march.cu with RT_LAUNCH_TRACE, at
-    ``path``, default TRACE_LIB in the build directory), its entry points
+    ``path``, default TRACE_LIB in the build directory), its entry point
     declared."""
     import ctypes
 
@@ -1293,73 +1266,7 @@ def open_trace_library(path=None):
     lib = march_kernel.open_library(path or march_kernel.BUILD_DIR / TRACE_LIB)
     lib.rt_launch_trace_set.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 2
     lib.rt_launch_trace_set.restype = ctypes.c_int
-    lib.rt_separatrix_score.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-        + [ctypes.c_int, ctypes.c_double, ctypes.c_int64, ctypes.c_void_p, ctypes.c_void_p])
-    lib.rt_separatrix_score.restype = ctypes.c_int
     return lib
-
-
-def separatrix_scores(lib, k, h, Q, spin, torch):
-    """``ops.diff.separatrix_score`` of each ray's constants (float32 or
-    float64 on the card) in float64: the score kernel of the trace build
-    ``lib``, counted in SCORE["launches"]; raises on a CUDA error. The
-    radius terms are the plain version's, computed as it computes them."""
-    from raytrace_tpu_torch.ops import march_kernel
-
-    spin = float(spin)
-    check(k.is_cuda and k.dtype in march_kernel._DTYPE_CODE and k.dtype == h.dtype == Q.dtype,
-          f"the score kernel takes float32 or float64 constants on the card, got {k.dtype}")
-    k, h, Q = (x.contiguous() for x in (k, h, Q))
-    r = torch.logspace(0.0, math.log10(4.5), SCORE_GRID, dtype=torch.float64, device=k.device)
-    r2a2, delta = r * r + spin * spin, r * r - 2.0 * r + spin * spin
-    out = torch.empty(k.shape[0], dtype=torch.float64, device=k.device)
-    with torch.cuda.device(k.device):
-        stream = torch.cuda.current_stream(k.device).cuda_stream
-        err = lib.rt_separatrix_score(k.data_ptr(), h.data_ptr(), Q.data_ptr(),
-                                      march_kernel._DTYPE_CODE[k.dtype], r2a2.data_ptr(),
-                                      delta.data_ptr(), SCORE_GRID, spin, k.shape[0],
-                                      out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"rt_separatrix_score failed with CUDA error {err}")
-    SCORE["launches"] += 1
-    return out
-
-
-def long_first_order(score, live, n_long, placement, torch):
-    """A launch order of a batch: slot s holds ray ``order[s]``. The
-    ``n_long`` live rays (``live``) of smallest |``score``| (NaN scores
-    aside, ties cut in index order), at most one a block
-    (``placement="block"``) or a warp ("warp"), go to lane 0 of the first
-    blocks (or warps) in their natural order, one each; the other rays
-    fill the remaining slots in their natural order. A stable partition
-    (flags, prefix sums, scatters), no sort of the batch."""
-    n = score.shape[0]
-    idx = torch.arange(n, device=score.device)
-    stride = PLACEMENT_STRIDE[placement]
-    n_long = min(int(n_long), -(-n // stride))
-    if n_long <= 0:
-        return idx
-    a = score.abs()
-    keep = live & ~torch.isnan(a)
-    a = torch.where(keep, a, math.inf)
-    cut = torch.topk(a, n_long, largest=False, sorted=False).values.amax()
-    long = keep & (a <= cut)
-    rank = torch.cumsum(long, 0)  # a head ray's place in the head, from 1
-    long &= rank <= n_long
-    # the head's slots, s % stride == 0 below stride x (its ray count)
-    head = (idx % stride == 0) & (idx // stride < long.sum())
-    # the rest of the slots in order: rest[j] is the j-th slot off the head
-    rest = torch.empty(n + 1, dtype=idx.dtype, device=score.device)
-    rest.scatter_(0, torch.where(head, n, torch.cumsum(~head, 0) - 1), idx)
-    other = (torch.cumsum(~long, 0) - 1).clamp_min(0)
-    slot = torch.where(long, (rank - 1) * stride, rest[other])
-    return torch.empty_like(idx).scatter_(0, slot, idx)
-
-
-def inverse(perm, torch):
-    """The inverse permutation: ``batch[perm][inverse(perm)]`` is ``batch``."""
-    return torch.empty_like(perm).scatter_(0, perm, torch.arange(len(perm), device=perm.device))
 
 
 def trace_build_march(lib, rays, spin, kernel_kw, torch):
@@ -1385,20 +1292,17 @@ def trace_build_march(lib, rays, spin, kernel_kw, torch):
     return march_kernel.finish(r, buf, dest, spin, refine)
 
 
-def launch_trace(lib, rays, spin, kernel_kw, perm, longest, torch):
-    """One launch of the trace build ``lib`` on ``rays`` in the order
-    ``perm`` (None: natural; else ``rays[perm]`` is marched and the result
-    gathered back into the batch's order), following the rays ``longest``:
-    every slot's start and store times, and the SM, block, iterations and
-    timer samples of the rays followed. Returns the tables (numpy, by slot
-    for start and stop, by row for the rest), the sample stride and the
-    result."""
+def launch_trace(lib, rays, spin, kernel_kw, longest, torch):
+    """One launch of the trace build ``lib`` on ``rays``, following the
+    rays ``longest``: every ray's start and store times, and the SM,
+    block, iterations and timer samples of the rays followed. Returns the
+    tables (numpy, by ray for start and stop, by row for the rest), the
+    sample stride and the result."""
     from raytrace_tpu_torch.ops.integrate import march_budget
 
     n, dev, rows = rays.n_rays, rays.r.device, len(longest)
-    slot = torch.arange(n, device=dev) if perm is None else inverse(perm, torch)
     traced = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    traced[slot[longest]] = torch.arange(rows, dtype=torch.int32, device=dev)
+    traced[longest] = torch.arange(rows, dtype=torch.int32, device=dev)
     start, stop = (torch.zeros(n, dtype=torch.int64, device=dev) for _ in range(2))
     sm, block, iters = (torch.zeros(rows, dtype=torch.int32, device=dev) for _ in range(3))
     samples = torch.zeros(rows, TRACE_SAMPLES, dtype=torch.int64, device=dev)
@@ -1408,27 +1312,22 @@ def launch_trace(lib, rays, spin, kernel_kw, perm, longest, torch):
                                   sm.data_ptr(), block.data_ptr(), iters.data_ptr(),
                                   samples.data_ptr(), stride, TRACE_SAMPLES)
     check(err == 0, f"rt_launch_trace_set failed with CUDA error {err}")
-    out = trace_build_march(lib, rays if perm is None else rays[perm], spin, kernel_kw,
-                            torch)
-    if perm is not None:
-        out = out[slot]
+    out = trace_build_march(lib, rays, spin, kernel_kw, torch)
     torch.cuda.synchronize()
     tables = {k: v.cpu().numpy() for k, v in dict(start=start, stop=stop, sm=sm, block=block,
                                                     iters=iters, samples=samples).items()}
     return tables, stride, out
 
 
-def trace_figures(tables, stride, steps, perm, longest, lone_us):
+def trace_figures(tables, stride, steps, longest, lone_us):
     """What one traced launch shows of the rays it followed (``longest``;
-    ``steps`` the batch's |steps| by ray, numpy; ``perm`` the order as
-    numpy, None natural): when they start and end, as shares of the launch
-    (first start to last store); their mean latency a step while the bulk
-    runs (until BULK_SHARE of the slots have stored) and after it, from the
-    timer samples, against ``lone_us`` (step_latency_us: the longest ray
-    alone); their warp-mates still marching at half their steps; the SMs
-    they ran on; and the same by row for the rays that end last. Also the
-    rays still marching when the bulk ended (a mask by ray), whose recall
-    the score is held to."""
+    ``steps`` the batch's |steps| by ray, numpy): when they start and end,
+    as shares of the launch (first start to last store); their mean
+    latency a step while the bulk runs (until BULK_SHARE of the rays have
+    stored) and after it, from the timer samples, against ``lone_us``
+    (step_latency_us: the longest ray alone); their warp-mates still
+    marching at half their steps; the SMs they ran on; and the same by row
+    for the rays that end last. Returns the figures and the rows."""
     import numpy as np
 
     start, stop = tables["start"].astype(np.float64), tables["stop"].astype(np.float64)
@@ -1436,10 +1335,7 @@ def trace_figures(tables, stride, steps, perm, longest, lone_us):
     t0, t1 = start.min(), stop.max()
     span = t1 - t0
     t_bulk = np.quantile(stop, BULK_SHARE)
-    ray_at = np.arange(n) if perm is None else perm
-    slots = np.empty(n, np.int64)
-    slots[ray_at] = np.arange(n)
-    s = slots[longest]
+    s = longest
     iters = tables["iters"].astype(np.int64)
     st = steps[longest].astype(np.int64)
     rows = []
@@ -1454,7 +1350,7 @@ def trace_figures(tables, stride, steps, perm, longest, lone_us):
         if stop[s[j]] > t_bulk and iters[j] > done:
             after = (stop[s[j]] - max(t_bulk, start[s[j]])) / (iters[j] - done) * per_step / 1e3
         w = s[j] // 32 * 32
-        mates = [ray_at[m] for m in range(w, min(w + 32, n)) if m != s[j]]
+        mates = [m for m in range(w, min(w + 32, n)) if m != s[j]]
         rows.append(dict(ray=int(longest[j]), steps=int(st[j]), iters=int(iters[j]),
                          start_ms=(start[s[j]] - t0) / 1e6, stop_ms=(stop[s[j]] - t0) / 1e6,
                          step_us_under_bulk=under, step_us_after_bulk=after,
@@ -1473,7 +1369,7 @@ def trace_figures(tables, stride, steps, perm, longest, lone_us):
         rows_with_a_mate_at_half=sum(r["mates_at_half"] > 0 for r in rows),
         sms=len({r["sm"] for r in rows}), rows=len(rows),
         last=sorted(rows, key=lambda r: -r["stop_ms"])[:4],
-    ), (stop > t_bulk)[slots], rows
+    ), rows
 
 
 def alone_batch(rays, longest, torch):
@@ -1486,89 +1382,12 @@ def alone_batch(rays, longest, torch):
     return pad.replace(steps=torch.where(dead, -1, pad.steps))
 
 
-def score_recall(score, live, tails, torch):
-    """The separatrix score's recall: for each named tail (a mask by ray,
-    numpy), the share of its live rays (``live``) that the K live rays of
-    smallest |``score``| hold, K = share x the batch for each of
-    RECALL_SHARES."""
-    import numpy as np
-
-    a = score.abs()
-    a = torch.where(live & ~torch.isnan(a), a, math.inf).cpu().numpy()
-    live = live.cpu().numpy()
-    rank = np.argsort(a, kind="stable")
-    out = {}
-    for name, mask in tails.items():
-        m = mask & live
-        top = {f"{x:g}": float(m[rank[:math.ceil(x * len(a))]].sum() / max(int(m.sum()), 1))
-               for x in RECALL_SHARES}
-        out[name] = dict(rays=int(m.sum()), **top)
-    return out
-
-
-def steps_tail(steps, live):
-    """The live rays past the BULK_SHARE rank of the live rays' |steps|:
-    those still marching once BULK_SHARE of the batch has ended, had they
-    all started at once."""
-    import numpy as np
-
-    s = np.sort(steps[live])
-    return live & (steps > s[math.ceil(BULK_SHARE * len(s)) - 1])
-
-
-def order_turns(rays, spin, kernel_kw, orders, torch):
-    """The launcher's kernel (kernel_march, grid launch) on ``rays`` in each
-    of ``orders`` (name -> a permutation, the batch gathered into it
-    beforehand; None the natural order), one CUDA-event launch each, in
-    turns: the names in order, then reversed. Every result, gathered back
-    into the batch's order, is held bitwise, all 21 fields, to the first's.
-    Returns name -> [ms, ms]."""
-    names = list(orders)
-    batches = {k: rays if p is None else rays[p] for k, p in orders.items()}
-    back = {k: None if p is None else inverse(p, torch) for k, p in orders.items()}
-    first = None
-    times = {k: [] for k in names}
-    for name in names + names[::-1]:
-        ms, out = cuda_ms(lambda: kernel_march(batches[name], spin, "grid", **kernel_kw), torch,
-                          repeats=1, warmup=False)
-        times[name].append(ms)
-        out = out if back[name] is None else out[back[name]]
-        if first is None:
-            first = out
-        elif len(times[name]) == 1:
-            diff = same_bits(out, first, torch)
-            check(not diff, f"order {name} and {names[0]} differ in {diff}")
-    return times
-
-
-def order_overhead_ms(lib, rays, spin, torch, repeats=3):
-    """What the long-first order costs beside the launch: the order itself
-    (the score kernel and long_first_order's partition), then the batch
-    gathered into it and gathered back; CUDA events, best of ``repeats``
-    each after a warm-up. Returns (overhead ms, the order alone ms)."""
-    n_long = math.ceil(LONG_FIRST_SHARE * rays.n_rays)
-
-    def order():
-        score = separatrix_scores(lib, rays.k, rays.h, rays.Q, spin, torch)
-        return long_first_order(score, rays.active, n_long, "block", torch)
-
-    order_ms, perm = cuda_ms(order, torch, repeats=repeats)
-    move_ms, _ = cuda_ms(lambda: rays[perm][inverse(perm, torch)], torch, repeats=repeats)
-    return order_ms + move_ms, order_ms
-
-
-def time_orders(lib, path, variant, rays, spin, kw, method, dtype, timed, torch):
+def trace_longest(lib, path, variant, rays, spin, kw, method, dtype, timed, torch):
     """Phase 13 on a float32 RK45 kernel's full-width batch at its CLI's
-    steplim (``timed``: its time_schedules record), the launch order's
-    measurements with the trace build ``lib``: the traced launch in the
-    natural and the long-first order (trace_figures), and on the
-    TRACE_ROWS longest rays alone (alone_batch: each one's own time); the
-    score's recall of the rays that outlive the bulk (by steps, by the
-    natural launch's store times, and the stuck ones); the launcher's
-    kernel in the natural order and in the long-first one with its head
-    one a block and one a warp, timed in turns, bitwise alike; and the
-    order's overhead. Returns the figures and the natural launch's traced
-    rows."""
+    steplim (``timed``: its time_schedules record), with the trace build
+    ``lib``: one launch following the TRACE_ROWS longest rays
+    (trace_figures), bitwise the launcher's kernel, and those rays alone
+    (alone_batch), each one's own time. Returns the figures."""
     import numpy as np
 
     from raytrace_tpu_torch.ops import kernel_steplim
@@ -1578,95 +1397,29 @@ def time_orders(lib, path, variant, rays, spin, kw, method, dtype, timed, torch)
     steps = natural.steps.abs().cpu().numpy().astype(np.int64)
     longest = torch.from_numpy(np.argsort(-steps, kind="stable")[:TRACE_ROWS].copy()).to(
         rays.r.device)
-    score = separatrix_scores(lib, rays.k, rays.h, rays.Q, spin, torch)
-    n_long = math.ceil(LONG_FIRST_SHARE * rays.n_rays)
-    perms = {place: long_first_order(score, rays.active, n_long, place, torch)
-             for place in PLACEMENT_STRIDE}
-    figures, rows, time_tail = {}, {}, None
-    for name, order in (("natural", None), ("long_first", perms["block"])):
-        tables, stride, out = launch_trace(lib, rays, spin, kernel_kw, order, longest, torch)
-        diff = same_bits(out, natural, torch)
-        check(not diff, f"{path} {variant}: the trace build ({name}) differs in {diff}")
-        figures[name], tail, rows[name] = trace_figures(
-            tables, stride, steps, None if order is None else order.cpu().numpy(),
-            longest.cpu().numpy(), timed["step_latency_us"])
-        time_tail = tail if time_tail is None else time_tail
+    tables, stride, out = launch_trace(lib, rays, spin, kernel_kw, longest, torch)
+    diff = same_bits(out, natural, torch)
+    check(not diff, f"{path} {variant}: the trace build differs in {diff}")
+    figures, rows = trace_figures(tables, stride, steps, longest.cpu().numpy(),
+                                  timed["step_latency_us"])
     head = torch.arange(len(longest), device=longest.device) * 32
-    tables, _, out = launch_trace(lib, alone_batch(rays, longest, torch), spin, kernel_kw, None,
-                                  head, torch)
+    tables, _, out = launch_trace(lib, alone_batch(rays, longest, torch), spin, kernel_kw, head,
+                                  torch)
     check(np.array_equal(out.steps[head].abs().cpu().numpy(), steps[longest.cpu().numpy()]),
           f"{path} {variant}: a ray marched alone took other steps than in its batch")
     alone = (tables["stop"] - tables["start"])[head.cpu().numpy()] / 1e6
-    for r, ms in zip(rows["natural"], alone):
+    for r, ms in zip(rows, alone):
         r["alone_ms"] = float(ms)
-    live = rays.active.cpu().numpy()
-    stuck = (natural.status.cpu().numpy() & 8) != 0  # RAY_STATUS_STEPLIM
-    recall = score_recall(score, rays.active, dict(steps=steps_tail(steps, live),
-                                                   time=time_tail, stuck=stuck), torch)
-    times = order_turns(rays, spin, kernel_kw, dict(natural=None, long_first=perms["block"],
-                                                    long_first_warp=perms["warp"]), torch)
-    overhead, order_ms = order_overhead_ms(lib, rays, spin, torch)
-    best = {k: min(t) for k, t in times.items()}
-    slowest = rows["natural"][int(np.argmax(alone))]
-    print(f"orders {path} {variant} ({rays.n_rays} rays): ms in turns "
-          + "; ".join(f"{k} {' '.join(f'{x:.3f}' for x in t)}" for k, t in times.items())
-          + f"; long-first / natural {best['long_first'] / best['natural']:.4f} (one a block), "
-          f"{best['long_first_warp'] / best['natural']:.4f} (one a warp); every order bitwise "
-          f"the natural launch's in all 21 fields; order overhead {overhead:.4f} ms (the "
-          f"order alone {order_ms:.4f} ms)")
-    print(f"  the {TRACE_ROWS} longest rays alone, each in its own warp: "
-          f"{timed['lone_floor_ms']:.3f} ms (best of 3); traced, the slowest "
-          f"{slowest['alone_ms']:.3f} ms (ray {slowest['ray']}, {slowest['steps']} steps, "
-          f"{slowest['iters']} iterations; in the batch it starts at {slowest['start_ms']:.3f} "
-          f"ms and stores at {slowest['stop_ms']:.3f}), the longest by steps (the latency "
-          f"term's ray) {alone[0]:.3f} ms")
-    for name, f in figures.items():
-        print(f"  trace {name}: {json.dumps(f)}")
-    print(f"  recall (share of each tail in the top K by |score|): {json.dumps(recall)}")
-    return dict(natural_ms=times["natural"], long_first_ms=times["long_first"],
-                long_first_warp_ms=times["long_first_warp"], recall=recall,
-                order_overhead_ms=overhead, order_ms=order_ms,
-                slowest_alone_ms=slowest["alone_ms"], slowest_start_ms=slowest["start_ms"],
-                trace={k: {x: v for x, v in f.items() if x != "last"}
-                       for k, f in figures.items()}), rows["natural"]
-
-
-# the JAX function the score kernel's plain version ports (no TPU kernel)
-SCORE_REPLACES = "raytrace_tpu/ops/diff.py:146 separatrix_score (plain JAX; no TPU kernel)"
-
-
-def score_check(lib, batches, torch):
-    """The separatrix score kernel of the trace build ``lib`` against its
-    plain version (ops.diff.separatrix_score in float64 on the card) on
-    each of ``batches`` ((name, rays, spin)), bit for bit; CUDA-event times
-    of both, best of 3 after a warm-up, and the bound: bytes (three
-    constants in, a float64 out) over the memory rate, and the FP64
-    operations (per ray and radius: two subtractions, three multiplies,
-    two additions, the divide counted as one, the compare; per ray eight
-    more) over the FP64 pipe's rate."""
-    from raytrace_tpu_torch.ops.diff import separatrix_score
-
-    out = {}
-    for name, rays, spin in batches:
-        k, h, Q = rays.k, rays.h, rays.Q
-        before = SCORE["launches"]
-        got = separatrix_scores(lib, k, h, Q, spin, torch)
-        check(SCORE["launches"] == before + 1, "the score kernel did not launch")
-        want = separatrix_score(k.double(), h.double(), Q.double(), float(spin))
-        check(torch.equal(got.view(torch.int64), want.view(torch.int64)),
-              f"score kernel and plain version differ on the {name} batch")
-        ms, _ = cuda_ms(lambda: separatrix_scores(lib, k, h, Q, spin, torch), torch)
-        plain_ms, _ = cuda_ms(lambda: separatrix_score(k.double(), h.double(), Q.double(),
-                                                       float(spin)), torch)
-        n = rays.n_rays
-        byte_ms = n * (3 * k.element_size() + 8) / HBM_BYTES_PER_S * 1e3
-        op_ms = n * (64 * 9 + 8) / (PIPE_LANES["fp64"] * CARD["sms"] * CARD["clock_hz"]) * 1e3
-        out[name] = dict(n_rays=n, ms=ms, plain_ms=plain_ms, bound_ms=max(byte_ms, op_ms),
-                         bound_by="bytes" if byte_ms > op_ms else "operations", max_abs_err=0.0)
-        print(f"score kernel ({name}, {n} rays, {k.dtype} constants): bitwise the plain "
-              f"version's; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (best of 3), bound "
-              f"{out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']})")
-    return out
+    slowest = rows[int(np.argmax(alone))]
+    print(f"launch trace {path} {variant} ({rays.n_rays} rays): the {TRACE_ROWS} longest rays "
+          f"alone, each in its own warp: {timed['lone_floor_ms']:.3f} ms (best of 3); traced, "
+          f"the slowest {slowest['alone_ms']:.3f} ms (ray {slowest['ray']}, {slowest['steps']} "
+          f"steps, {slowest['iters']} iterations; in the batch it starts at "
+          f"{slowest['start_ms']:.3f} ms and stores at {slowest['stop_ms']:.3f}), the longest "
+          f"by steps (the latency term's ray) {alone[0]:.3f} ms")
+    print(f"  trace: {json.dumps(figures)}")
+    return dict(slowest_alone_ms=slowest["alone_ms"], slowest_start_ms=slowest["start_ms"],
+                trace={x: v for x, v in figures.items() if x != "last"})
 
 
 def slice_batch(kind):
@@ -1702,9 +1455,9 @@ class Recorder:
     keywords and result), the milliseconds all its calls took on the card
     (CUDA events around each call, synchronised after it, as the app
     synchronises when it reads the result back) and each call's method and
-    kernel launches. A call with ``ranges`` is recorded once its last range
-    has landed: its result is then the landed pieces laid end to end, and
-    its milliseconds run to that landing."""
+    kernel launches. A call of ``trace_in_ranges`` is recorded once its
+    last range has landed: its result is then the landed pieces laid end
+    to end, and its milliseconds run to that landing."""
 
     def __init__(self, module, name="trace_auto"):
         self.module, self.name = module, name
@@ -1743,7 +1496,7 @@ class Recorder:
             before = march_kernel.launches
             start.record()
             out = real(*args, **kw)
-            if kw.get("ranges") is not None:
+            if self.name == "trace_in_ranges":
                 return landing(out, start, before, args, kw)
             record(start, before, args, kw, out)
             return out
@@ -1873,11 +1626,6 @@ def ptxas_lines(log):
     out = []
     for name, k in sorted(kernels.items()):
         m = re.search(r"(march_kernel|march_refill_kernel)I([fd])Li(\d)ELi(\d)E", name)
-        score = re.search(r"score_kernelI([fd])E", name)
-        if score:
-            out.append(f"separatrix score, {'f32' if score.group(1) == 'f' else 'f64'} constants: "
-                       f"{k.get('regs')} registers, stack {k.get('stack')} B, spill stores "
-                       f"{k.get('stores')} B, loads {k.get('loads')} B")
         if not m:
             continue
         sched = "grid" if m.group(1) == "march_kernel" else "refill"
@@ -1971,7 +1719,7 @@ def slice_phases(launches, torch):
                 par = (TRACE_RAYS_PARFILE if mod == "trace_rays" else
                        None if entry == "main_photonfrac" else PARFILE)
                 argv = ([f"--parfile={par}"] if par else []) + [f"--outfile={outfile}"] + extra
-                march_kernel.launches = SCORE["launches"] = 0
+                march_kernel.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 rec = Recorder(app) if hasattr(app, "trace_auto") else contextlib.nullcontext()
@@ -1980,7 +1728,6 @@ def slice_phases(launches, torch):
                     torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 n_launch = march_kernel.launches
-                SCORE["main"] += SCORE["launches"]
                 check(rc == 0, f"{mod}.{entry} {extra} returned {rc}")
                 check(n_launch == n_expect,
                       f"{mod}.{entry} {extra}: {n_launch} kernel launches, not {n_expect}")
@@ -2174,7 +1921,7 @@ def outflow_phases(launches, image_fits, torch):
                 target = (importlib.import_module("raytrace_tpu_torch.parallel.sharding")
                           if tag == "line profile" else app)
                 rec = Recorder(target, march) if march else contextlib.nullcontext()
-                march_kernel.launches = SCORE["launches"] = 0
+                march_kernel.launches = 0
                 integrate.iterations = 0
                 torch.cuda.synchronize()
                 buf = io.StringIO()
@@ -2184,7 +1931,6 @@ def outflow_phases(launches, image_fits, torch):
                     torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 n_launch, iters = march_kernel.launches, integrate.iterations
-                SCORE["main"] += SCORE["launches"]
                 check(rc == 0, f"{mod}.{entry} returned {rc}")
                 by_variant = {}
                 for method, n in (rec.calls if march else ()):
@@ -2445,12 +2191,11 @@ def gradient_phases(launches, torch):
         kw = dict(r_max=500.0)
         scan, scan_s, _ = walled(lambda: trace_scan(rays, SPIN, method="rk4", n_steps=n_steps,
                                                     **kw))
-        march_kernel.launches = SCORE["launches"] = 0
+        march_kernel.launches = 0
         out = march_kernel.trace_kernel(rays, SPIN, method="rk4", steplim=n_steps + 1,
                                         march_dtype=f64, **kw)
         torch.cuda.synchronize()
         launches["rk4_theta_f64"] = march_kernel.launches
-        SCORE["main"] += SCORE["launches"]
         check(march_kernel.launches == 1, "19a: the kernel was not launched once")
         live = rays.steps == 0
         ended = live & ((scan.status & RAY_STATUS_TERMINAL) != 0)
@@ -2742,11 +2487,10 @@ def resume_shard_phases(launches, torch):
             kw = dict(method=method, steplim=kernel_steplim(method))
             single, one_ms, one_wall = walled(lambda: march_kernel.trace_kernel(rays, par["spin"],
                                                                              **kw))
-            march_kernel.launches = SCORE["launches"] = 0
+            march_kernel.launches = 0
             phased, ph_ms, ph_wall = walled(lambda: march_kernel.trace_kernel_phased(
                 rays, par["spin"], phase_iters=2048, **kw))
             n_launch = march_kernel.launches
-            SCORE["main"] += SCORE["launches"]
             launches[f"{method}_theta"] += n_launch
             diff = same_bits(phased, single, torch)
             moved = torch.zeros(rays.n_rays, dtype=torch.bool, device="cuda")
@@ -2774,10 +2518,9 @@ def resume_shard_phases(launches, torch):
         # the same boundaries, on the bench grid at STUCK_STEPLIM
         bench = lamppost(bench_grid, torch.float32)
         kw = dict(method="rk45", steplim=STUCK_STEPLIM)
-        march_kernel.launches = SCORE["launches"] = 0
+        march_kernel.launches = 0
         pk = march_kernel.trace_kernel_phased(bench, SPIN, phase_iters=2048, **kw)
         launches["rk45_theta"] += march_kernel.launches
-        SCORE["main"] += SCORE["launches"]
         (pp, pp_ms, _) = walled(lambda: trace_compacted(bench, SPIN, progress=True,
                                                          phase_iters=2048, **kw))
         diff = same_bits(pk, pp, torch)
@@ -2791,7 +2534,7 @@ def resume_shard_phases(launches, torch):
     with Phase("20b resume: checkpoint on the card"):
         kw = dict(method="rk4", steplim=kernel_steplim("rk4"))
         full = march_kernel.trace_kernel(bench, SPIN, **kw)
-        march_kernel.launches = SCORE["launches"] = 0
+        march_kernel.launches = 0
         part = march_kernel.trace_kernel(bench, SPIN, max_iters=150, refine_crossing=False, **kw)
         with tempfile.TemporaryDirectory() as tmp:
             path = str(Path(tmp) / "rays.npz")
@@ -2801,7 +2544,6 @@ def resume_shard_phases(launches, torch):
             io_s = time.perf_counter() - t0
         out = march_kernel.trace_kernel(loaded, SPIN, resume=True, **kw)
         launches["rk4_theta"] += march_kernel.launches
-        SCORE["main"] += SCORE["launches"]
         diff = same_bits(out, full, torch)
         live = int(part.active.sum())
         print(f"20b: rk4 f32 kernel, {bench.n_rays} rays: 150 iterations leave {live} active; "
@@ -2879,11 +2621,10 @@ def resume_shard_phases(launches, torch):
             # group, which calls no collective): the same sharded path
             runs = {"sharded": [], "unsharded": []}
             for which in ("sharded", "unsharded", "unsharded", "sharded"):
-                march_kernel.launches = SCORE["launches"] = 0
+                march_kernel.launches = 0
                 out, ms, wall = walled(lambda: emissivity.compute(
                     **par, mesh=mesh if which == "sharded" else None))
                 check(march_kernel.launches == 1, f"20d: {which} compute did not launch once")
-                SCORE["main"] += SCORE["launches"]
                 if which == "sharded":
                     launches["rk45_theta"] += march_kernel.launches
                     shard_out = out
@@ -2915,10 +2656,9 @@ def resume_shard_phases(launches, torch):
             rays, spin, ckw = caustic_batch("plane", torch.float64)
             ckw = dict(ckw, method="rk45", steplim=kernel_steplim("rk45"),
                        march_dtype=torch.float64)
-            march_kernel.launches = SCORE["launches"] = 0
+            march_kernel.launches = 0
             sc = sharded_caustic_trace(rays, spin, mesh, **ckw)
             launches["rk45_plane_f64"] += march_kernel.launches
-            SCORE["main"] += SCORE["launches"]
             diff = same_bits(sc, trace_auto(rays, spin, **ckw), torch)
             check(not diff, f"20d: sharded_caustic_trace and trace_auto differ in {diff}")
             print(f"20d: sharded_caustic_trace on the plane golden's {rays.n_rays} bundle rays "
@@ -3008,7 +2748,6 @@ def main() -> int:
     from raytrace_tpu_torch.destinations import SphericalShell
     from raytrace_tpu_torch.io import read_fits
     from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, trace, trace_auto
-    from raytrace_tpu_torch.parallel import sharding
     from raytrace_tpu_torch.sources import ImagePlaneGrid, PointSourceGrid
 
     # lives until the script ends: phase 8 writes the disc image phase 17 folds
@@ -3128,14 +2867,13 @@ def main() -> int:
                 argv = [f"--parfile={PARFILE}", f"--outfile={outfile}"]
                 if method == "rk4":
                     argv.append("--integrator=rk4")
-                march_kernel.launches = SCORE["launches"] = 0
+                march_kernel.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 rc = emissivity.main(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches[f"{method}_theta"] = march_kernel.launches
-                SCORE["main"] += SCORE["launches"]
                 check(rc == 0, f"emissivity main returned {rc}")
                 check(march_kernel.launches > 0, f"main path ({method}) never launched the kernel")
                 prof = np.loadtxt(outfile)
@@ -3233,14 +2971,13 @@ def main() -> int:
                 argv = [f"--parfile={IMAGE_PARFILE}", f"--outfile={outfile}"]
                 if extra:
                     argv.append(extra)
-                march_kernel.launches = SCORE["launches"] = 0
+                march_kernel.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 rc = getattr(imageplane_disc_image, entry)(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 n_launch = march_kernel.launches
-                SCORE["main"] += SCORE["launches"]
                 launches[variant] = launches.get(variant, 0) + n_launch
                 check(rc == 0, f"{entry} returned {rc}")
                 check(n_launch > 0, f"main path ({entry} {extra or ''}) never launched the kernel")
@@ -3338,9 +3075,9 @@ def main() -> int:
 
     runs = {}
     with Phase("12 caustic full width"):
-        # caustics.compute marches through the sharded layer's trace_auto, on
-        # one card in pixel ranges as they land (seen: the ranges end to end)
-        with Recorder(sharding) as rec, tempfile.TemporaryDirectory() as tmp:
+        # caustics.compute marches in pixel ranges as they land on one card
+        # (seen: the ranges end to end)
+        with Recorder(caustics, "trace_in_ranges") as rec, tempfile.TemporaryDirectory() as tmp:
             seen = rec.seen  # what the main path marched, and how
             for target, extra, variant in CAUSTIC_RUNS:
                 outfile = Path(tmp) / f"{variant}.fits"
@@ -3348,20 +3085,18 @@ def main() -> int:
                 if extra:
                     argv.append(extra)
                 cli = caustics.compute_args(Config(argv), target)[0]
-                march_kernel.launches = SCORE["launches"] = 0
+                march_kernel.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 rc = getattr(caustics, CAUSTIC_MAINS[target])(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 n_launch = march_kernel.launches
-                SCORE["main"] += SCORE["launches"]
                 launches[variant] = n_launch
                 rays, kw = seen["rays"], dict(seen["kw"])
                 method = kw.pop("method")
                 march_dtype = kw.pop("march_dtype")
                 kw.pop("steplim")
-                kw.pop("ranges")
                 kind = {"DiscWithISCO": "isco", "FlatPlane": "plane",
                         "ThetaLimit": "theta"}[type(kw["dest"]).__name__]
                 check(rc == 0, f"{CAUSTIC_MAINS[target]} returned {rc}")
@@ -3391,14 +3126,13 @@ def main() -> int:
         shell_kw = dict(dest=SphericalShell(SHELL["r_shell"]), boundary=SHELL["boundary"])
         for method in ("euler", "rk4", "rk45"):
             variant = f"{method}_shell_f32"
-            march_kernel.launches = SCORE["launches"] = 0
+            march_kernel.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = trace_auto(bench, SPIN, method=method, **shell_kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches[variant] = march_kernel.launches
-            SCORE["main"] += SCORE["launches"]
             check(launches[variant] > 0, f"the shell route ({method}) never launched the kernel")
             print(f"shell route {method} (bench grid, {bench.n_rays} rays, float32): wall "
                   f"{wall:.3f} s, {launches[variant]} kernel launch(es)")
@@ -3412,7 +3146,7 @@ def main() -> int:
         runs.clear()
 
     timed = {}
-    orders = {}  # (main path, variant) -> phase 13's launch-order figures
+    traces = {}  # (main path, variant) -> phase 13's launch-trace figures
     with Phase("13 schedules"):
         trace_lib = open_trace_library()
         for tag, (k_ms, p_ms, b_ms, b_by) in small_timing.items():
@@ -3421,11 +3155,9 @@ def main() -> int:
         for path, variant, rays, spin, kw, method, dtype in batches:
             timed[path, variant] = time_schedules(path, variant, rays, spin, kw, method, dtype,
                                                   torch)
-            if variant in ORDERED and dtype == torch.float32:
-                orders[path, variant], _ = time_orders(trace_lib, path, variant, rays, spin, kw,
-                                                       method, dtype, timed[path, variant], torch)
-        scores = score_check(trace_lib, [(path, rays, spin) for path, variant, rays, spin, *_
-                                         in batches if variant == "rk45_theta"], torch)
+            if variant in TRACED and dtype == torch.float32:
+                traces[path, variant] = trace_longest(trace_lib, path, variant, rays, spin, kw,
+                                                      method, dtype, timed[path, variant], torch)
         batches.clear()
 
     slice_phases(launches, torch)
@@ -3477,15 +3209,6 @@ def main() -> int:
             "lone_floor_ms": t["lone_floor_ms"],
             "batch": f"{path}, {t['n_rays']} rays",
         })
-        if (path, variant) in orders:
-            o = orders[path, variant]
-            kernels[-1].update(order="natural", natural_ms=o["natural_ms"],
-                               long_first_ms=o["long_first_ms"], recall=o["recall"],
-                               order_overhead_ms=o["order_overhead_ms"])
-            if (path, variant) == ("emissivity", "rk45_theta"):
-                d = orders["disc image", "rk45_theta"]
-                kernels[-1]["disc_image"] = {k: d[k] for k in (
-                    "natural_ms", "long_first_ms", "recall", "order_overhead_ms")}
     # the bound counts accepted steps; a rejected trial is one more full
     # iteration of the loop, so the bound over the trials is the bound times
     # trials / accepted steps (the emissivity batch's finished lanes)
@@ -3498,13 +3221,7 @@ def main() -> int:
           f"({rejects['share']:.4%} of the trials) raise the bound to "
           f"{rk45['bound_ms_with_trials']:.3f} ms ({over_trials:.3f}x): they explain "
           f"{(per_step - 1) / (over - 1):.1%} of the excess")
-    # the order was not taken: no main path may launch the score kernel
-    check(SCORE["main"] == 0, f"the main paths launched the score kernel {SCORE['main']} times")
-    print(json.dumps({"launch_order": {
-        "score_kernel": dict(name="separatrix_score", route="cuda", source=SOURCE_FILE,
-                             replaces=SCORE_REPLACES, launches=SCORE["main"], library_ms=None,
-                             batches=scores),
-        "batches": {f"{p}, {v}": o for (p, v), o in orders.items()}}}))
+    print(json.dumps({"launch_trace": {f"{p}, {v}": t for (p, v), t in traces.items()}}))
     print(json.dumps({"gradients": grads}))
     print(json.dumps({"resume_and_shards": resumed}))
     print(json.dumps({"kernels": kernels}))

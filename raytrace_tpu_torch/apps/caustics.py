@@ -42,9 +42,9 @@ from raytrace_tpu_torch.config import Config
 from raytrace_tpu_torch.destinations import DiscWithISCO, FlatPlane, ThetaLimit
 from raytrace_tpu_torch.geometry import isco_radius
 from raytrace_tpu_torch.io import FITSOutput
-from raytrace_tpu_torch.ops import StepControl
+from raytrace_tpu_torch.ops import StepControl, trace_in_ranges
 from raytrace_tpu_torch.ops.redshift import apply_redshift_dest, redshift_start
-from raytrace_tpu_torch.parallel import RayMesh, auto_mesh, sharded_caustic_trace
+from raytrace_tpu_torch.parallel import auto_mesh, sharded_caustic_trace
 from raytrace_tpu_torch.rays import (
     RAY_STATUS_DEST,
     RAY_STATUS_HORIZON,
@@ -373,27 +373,26 @@ def compute(
     it on the card (the kernel) and on the CPU (the plain march). A CUDA
     device with no card visible raises.
 
-    On a card with no ``mesh`` the map splits into ``ranges_for`` pixel
-    ranges, and the batch is laid out range after range (``_range_major``):
-    the march lands range by range (``trace_auto``'s ``ranges``; under the
-    grid launch each range marches on its own stream and lands as it ends)
-    and the host copies and maps each range as it lands, while the ranges
-    that hold stuck rays still march; the passes over the whole map follow.
-    The maps are bitwise those of one batch. Otherwise the batch is marched
-    whole: with a ``mesh`` (``parallel.make_ray_mesh``) the camera is built
-    on the mesh's device and the march splits over its ranks, gathered
-    back to full width on each; without one (on the CPU) the process is a
-    world of one on ``device``. Both go through
-    ``parallel.sharded_caustic_trace``, and the Jacobians stay on the host
-    either way.
+    The march comes back in pieces, each a run of pixel ranges, and the
+    host maps each piece as it comes (``_pixel_maps``, ``_assemble``);
+    the passes over the whole map follow (``_whole_maps``). On a card with
+    no ``mesh`` the map splits into ``ranges_for`` pixel ranges, the batch
+    is laid out range after range (``_range_major``) and
+    ``ops.trace_in_ranges`` marches it: under the grid launch each range
+    on its own stream, landing as it ends, so the host maps the ranges
+    while those that hold stuck rays still march. Elsewhere the map is one
+    range and the batch, in the camera's order, one piece: on the CPU
+    marched by ``trace_in_ranges``, with a ``mesh``
+    (``parallel.make_ray_mesh``) built on the mesh's device and marched
+    over its ranks by ``parallel.sharded_caustic_trace``, gathered back to
+    full width on each. The maps are bitwise those of one batch.
 
     Runs in the span ``rt.compute`` (``utils.profiling``): the camera in
-    ``rt.source``, the redshifts in ``rt.redshift``, the march in
-    ``rt.march``, the fields' copies to the host in ``rt.to_host``, the
-    order, coordinate, Jacobian and suppression maps in ``rt.maps``; on a
-    card with no mesh one ``rt.march.finish`` (under the grid launch), one
-    ``rt.to_host`` and one ``rt.maps`` for the ranges that land together,
-    then a last ``rt.maps`` for the passes over the whole map.
+    ``rt.source``, the start redshift in ``rt.redshift``, the march in
+    ``rt.march``; then for each piece a ``rt.march.finish`` (ranges under
+    the grid launch), the disc's redshift and the fields' copies to the
+    host in ``rt.to_host`` and the per-pixel maps in ``rt.maps``; then a
+    last ``rt.maps`` for the passes over the whole map.
     """
     with span("rt.compute"):
         device = require_device(device if mesh is None else mesh.device)
@@ -426,10 +425,12 @@ def compute(
 
         n_slots = 5 if use_bundles else 1
         n_pixels = grid.nx * grid.ny
-        ranged = mesh is None and device.type == "cuda"
-        if ranged:
-            bounds = _range_bounds(n_pixels, ranges_for(n_pixels))
-            cuts = [n_slots * p for p in bounds]
+        # The CPU march's float64 sin, cos and pow may round a ray by its
+        # place in the batch, so only the card's batch is reordered.
+        n_ranges = ranges_for(n_pixels) if mesh is None and device.type == "cuda" else 1
+        bounds = _range_bounds(n_pixels, n_ranges)
+        cuts = [n_slots * p for p in bounds]
+        if n_ranges > 1:
             rays = rays[_range_major(bounds, n_slots, device)]
 
         with span("rt.redshift"):
@@ -439,45 +440,33 @@ def compute(
         pixel = functools.partial(_pixel_maps, target=target, r_isco=r_isco, r_disc=r_disc,
                                   incl=incl, phi0=phi0, winding=winding, eps=eps)
 
-        def post(out):
-            if target != "disc":
-                return out
-            return apply_redshift_dest(out, a_trace, dest, reverse=True)
-
-        out = sharded_caustic_trace(rays, a_trace,
-                                    mesh or RayMesh(group=None, rank=0, size=1, device=device),
-                                    dest=dest, r_max=r_max, method=method, steplim=steplim,
-                                    ctrl=ctrl, march_dtype=dtype,
-                                    ranges=cuts if ranged else None)
-        if ranged:
-            host, pix = {}, {}
-            for k0, k1, part, stream in out:
-                with span("rt.to_host"):
-                    with torch.cuda.stream(stream):
-                        part = post(part)
-                        for f in names:
-                            x = getattr(part, f)
-                            if f not in host:  # pinned, so that the copies need not wait
-                                host[f] = torch.empty(cuts[-1], dtype=x.dtype, pin_memory=True)
-                            host[f][cuts[k0]:cuts[k1]].copy_(x, non_blocking=True)
+        march = dict(dest=dest, r_max=r_max, method=method, steplim=steplim, ctrl=ctrl,
+                     march_dtype=dtype)
+        if mesh is None:
+            pieces = trace_in_ranges(rays, a_trace, cuts, **march)
+        else:
+            pieces = [(0, 1, sharded_caustic_trace(rays, a_trace, mesh, **march), None)]
+        host, pix = {}, {}
+        for k0, k1, part, stream in pieces:
+            # a piece with a stream is copied to pinned memory on it, without waiting
+            with span("rt.to_host"), torch.cuda.stream(stream):
+                if target == "disc":
+                    part = apply_redshift_dest(part, a_trace, dest, reverse=True)
+                for f in names:
+                    x = getattr(part, f)
+                    if f not in host:
+                        host[f] = torch.empty(cuts[-1], dtype=x.dtype,
+                                              pin_memory=stream is not None)
+                    host[f][cuts[k0]:cuts[k1]].copy_(x, non_blocking=stream is not None)
+                if stream is not None:
                     stream.synchronize()
-                with span("rt.maps"):
-                    for k in range(k0, k1):
-                        fields = {f: host[f][cuts[k]:cuts[k + 1]].numpy().reshape(n_slots, -1)
-                                  for f in names}
-                        _assemble(pix, bounds[k], bounds[k + 1], pixel(fields), n_pixels)
             with span("rt.maps"):
-                return _whole_maps(pix, target=target, grid=grid)
-
-        if target == "disc":
-            with span("rt.redshift"):
-                out = post(out)
-
-        with span("rt.to_host"):
-            fields = {f: getattr(out, f).cpu().numpy().reshape(n_slots, n_pixels) for f in names}
-
+                for k in range(k0, k1):
+                    fields = {f: host[f][cuts[k]:cuts[k + 1]].numpy().reshape(n_slots, -1)
+                              for f in names}
+                    _assemble(pix, bounds[k], bounds[k + 1], pixel(fields), n_pixels)
         with span("rt.maps"):
-            return _whole_maps(pixel(fields), target=target, grid=grid)
+            return _whole_maps(pix, target=target, grid=grid)
 
 
 _EXTENSIONS = {

@@ -73,12 +73,11 @@
 // tail; and the math library's own sequences (divide, square root, sincos,
 // pow) are not rewritten.
 // Nor does the launch reorder its rays. A long-first order was tried on
-// the float32 RK45 theta and isco kernels (chip_smoke.py phase 13,
-// time_orders): the rays with the smallest separatrix score (score_kernel
-// of the launch-trace build below: Carter's radial potential minimised
-// over 64 radii) at the head of the launch, each alone in its block or
-// warp, so that the rays that outlive the bulk would start in its first
-// wave. Every order gives the same bits. On an H100 80GB HBM3 at 700 W
+// the float32 RK45 theta and isco kernels: the rays with the smallest
+// separatrix score (Carter's radial potential minimised over 64 radii,
+// ops/diff.py::separatrix_score) at the head of the launch, each alone in
+// its block or warp, so that the rays that outlive the bulk would start in
+// its first wave. Every order gives the same bits. On an H100 80GB HBM3 at 700 W
 // (PERF.md) the score found none of them: of the rays still
 // marching once 99.9% of each main-path batch had ended, the top 0.1% by
 // score held at most 0.2%, and of the disc image's 36 rays stuck at 1e5
@@ -191,43 +190,8 @@ __device__ int march_traced(const rt::Params<T>& p, const rt::Fields<T>& f, int6
   return iters;
 }
 
-// The separatrix score of ray i, for phase 13's recall
-// (chip_smoke.py::separatrix_scores; the plain version is
-// ops/diff.py::separatrix_score in float64): the least over the radii of
-// a log grid of Carter's radial potential R(r) = A^2 - Delta B over
-// A^2 + |Delta| B + 1, with A = r^2 + a^2 - a xi, B = eta + (xi - a)^2,
-// xi = h / k and eta = Q / k^2, in float64 from the batch's float or
-// double constants. The radius terms r^2 + a^2 and Delta
-// come from the caller, computed as the plain version computes them; each
-// operation is the plain version's, in its order, and --fmad=false keeps
-// them apart, so the score is its bits. A NaN term makes the score NaN,
-// as torch.amin does.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    score_kernel(const T* k, const T* h, const T* Q, const double* r2a2, const double* delta,
-                 int n_grid, double spin, int64_t n, double* score) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const double kk = static_cast<double>(k[i]);
-  const double k_safe = fabs(kk) > 1e-30 ? kk : 1.0;
-  const double xi = static_cast<double>(h[i]) / k_safe;
-  const double eta = static_cast<double>(Q[i]) / (k_safe * k_safe);
-  const double a_xi = xi * spin;
-  const double d = xi - spin;
-  const double B = eta + d * d;
-  double best = 0.0;
-  for (int j = 0; j < n_grid; ++j) {
-    const double A = r2a2[j] - a_xi;
-    const double R = A * A - delta[j] * B;
-    const double norm = A * A + fabs(delta[j]) * B + 1.0;
-    const double v = R / norm;
-    if (j == 0 || v < best || v != v) best = v;
-  }
-  score[i] = best;
-}
-
 // The instantiations the trace build traces: the float32 RK45 theta and
-// isco kernels, whose launch order chip_smoke.py phase 13 measures.
+// isco kernels, whose launches chip_smoke.py phase 13 traces.
 template <typename T, int METHOD, int DEST>
 __host__ __device__ constexpr bool traced() {
   return sizeof(T) == 4 && METHOD == rt::METHOD_RK45 &&
@@ -453,29 +417,6 @@ int rt_march_kernel_info(int method, int dest, int dtype, int schedule, int* out
 }
 
 #if defined(RT_LAUNCH_TRACE)
-// The separatrix score of n rays into the float64 array `score` on
-// `stream` (score_kernel): k, h and Q float32 (dtype 0) or float64 (1),
-// r2a2 and delta the n_grid radius terms in float64 on the device. Returns
-// cudaGetLastError() after the launch; does not synchronise.
-int rt_separatrix_score(const void* k, const void* h, const void* Q, int dtype,
-                        const double* r2a2, const double* delta, int n_grid, double spin,
-                        int64_t n, double* score, void* stream) {
-  if (n <= 0 || n_grid <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 blocks(static_cast<unsigned>((n + kThreads - 1) / kThreads));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    score_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(k), static_cast<const float*>(h), static_cast<const float*>(Q),
-        r2a2, delta, n_grid, spin, n, score);
-  else if (dtype == 1)
-    score_kernel<double><<<blocks, kThreads, 0, s>>>(
-        static_cast<const double*>(k), static_cast<const double*>(h),
-        static_cast<const double*>(Q), r2a2, delta, n_grid, spin, n, score);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // Point the trace build's traced kernels at their tables (LaunchTrace)
 // for the launches that follow; returns a CUDA error code.
 int rt_launch_trace_set(void* start, void* stop, const void* traced, void* sm, void* block,

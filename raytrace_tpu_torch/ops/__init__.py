@@ -60,7 +60,7 @@ def kernel_steplim(method, steplim=None) -> int:
     return steplim
 
 
-def trace_auto(rays, spin, march_dtype=None, progress=None, ranges=None, **kw):
+def trace_auto(rays, spin, march_dtype=None, progress=None, **kw):
     """March on the batch's device: a CUDA batch towards a destination the
     kernel implements (``kernel_supported``) goes to the march kernel (with
     ``kernel_steplim``); any other batch, and a CUDA batch towards any
@@ -82,51 +82,59 @@ def trace_auto(rays, spin, march_dtype=None, progress=None, ranges=None, **kw):
     ("plain_phased"); the compiled analogue of the reference's in-loop bar
     (raytracer.cpp:107-115).
 
-    ``ranges`` (ray offsets from 0 to the batch's count, no range empty)
-    asks for the batch in ranges as they land, for a caller that works on
-    each while the others march: the return is then an iterator of (k0,
-    k1, out, stream), ``out`` the marched rays [ranges[k0], ranges[k1]) of
-    the ranges k0 up to k1 and ``stream`` the one it was made on (None on
-    the CPU). On the kernel route under the grid launch with no progress
-    bar each range marches on its own stream, and the ranges come as they
-    land (``trace_kernel_ranges``); elsewhere the batch marches whole, as
-    without ``ranges``, and comes as one piece.
-
     Either route runs in the span ``rt.march`` (``utils.profiling``)."""
-    if progress is None:
-        progress = os.environ.get("RT_PROGRESS", "0") == "1"
+    progress = _progress(progress)
     method = kw.pop("method", "rk45")
     with span("rt.march"):
         if rays.r.is_cuda and kernel_supported(method, kw.get("dest")):
             steplim = kernel_steplim(method, kw.pop("steplim", None))
             dtype = torch.float32 if march_dtype is None else march_dtype
-            dest = kw.get("dest") or ThetaLimit(math.pi / 2)
-            if (ranges is not None and not progress
-                    and schedule_of(method, dest, dtype) == "grid"):
-                routes["kernel"] += 1
-                return trace_kernel_ranges(rays, spin, ranges, method=method, steplim=steplim,
-                                           march_dtype=dtype, **kw)
             route, run = (("kernel_phased", trace_kernel_phased) if progress
                           else ("kernel", trace_kernel))
             routes[route] += 1
-            out = run(rays, spin, method=method, steplim=steplim, march_dtype=dtype, **kw)
-        else:
-            if march_dtype not in (None, rays.r.dtype):
-                raise ValueError(f"the plain march works in the batch's dtype {rays.r.dtype}, "
-                                 f"not march_dtype={march_dtype}")
-            if progress:
-                routes["plain_phased"] += 1
-                out = trace_compacted(rays, spin, method=method, progress=True, **kw)
-            else:
-                routes["plain"] += 1
-                out = trace(rays, spin, method=method, **kw)
-    return out if ranges is None else _in_order(out, ranges)
+            return run(rays, spin, method=method, steplim=steplim, march_dtype=dtype, **kw)
+        if march_dtype not in (None, rays.r.dtype):
+            raise ValueError(f"the plain march works in the batch's dtype {rays.r.dtype}, "
+                             f"not march_dtype={march_dtype}")
+        if progress:
+            routes["plain_phased"] += 1
+            return trace_compacted(rays, spin, method=method, progress=True, **kw)
+        routes["plain"] += 1
+        return trace(rays, spin, method=method, **kw)
 
 
-def _in_order(out, ranges):
-    """``trace_auto``'s ranges of a batch marched whole: one piece."""
-    yield 0, len(ranges) - 1, out, (torch.cuda.current_stream(out.r.device) if out.r.is_cuda
-                                    else None)
+def trace_in_ranges(rays, spin, cuts, march_dtype=None, progress=None, **kw):
+    """``trace_auto`` for a caller that works on each range of the batch
+    while the others still march: range k is the rays [cuts[k], cuts[k +
+    1]) (``cuts`` from 0 to the batch's count, no range empty). Returns an
+    iterator of (k0, k1, out, stream): ``out`` the marched rays [cuts[k0],
+    cuts[k1]) of the ranges k0 up to k1, and ``stream`` the CUDA stream
+    their work is queued on (None on the CPU). On the kernel route under
+    the grid launch with no progress bar each range marches on its own
+    stream and the ranges come as they land (``trace_kernel_ranges``,
+    counted as "kernel", launched in the span ``rt.march``); otherwise the
+    batch marches whole (``trace_auto``) and comes as one piece."""
+    progress = _progress(progress)
+    method = kw.pop("method", "rk45")
+    dest = kw.get("dest")
+    dtype = torch.float32 if march_dtype is None else march_dtype
+    if (rays.r.is_cuda and not progress and kernel_supported(method, dest)
+            and schedule_of(method, dest or ThetaLimit(math.pi / 2), dtype) == "grid"):
+        steplim = kernel_steplim(method, kw.pop("steplim", None))
+        with span("rt.march"):
+            routes["kernel"] += 1
+            return trace_kernel_ranges(rays, spin, cuts, method=method, steplim=steplim,
+                                       march_dtype=dtype, **kw)
+    out = trace_auto(rays, spin, march_dtype=march_dtype, progress=progress, method=method, **kw)
+    stream = torch.cuda.current_stream(out.r.device) if out.r.is_cuda else None
+    return iter([(0, len(cuts) - 1, out, stream)])
+
+
+def _progress(progress) -> bool:
+    """``progress``, or when it is None whether ``RT_PROGRESS=1`` is set."""
+    if progress is None:
+        return os.environ.get("RT_PROGRESS", "0") == "1"
+    return progress
 
 
 __all__ = [
@@ -150,6 +158,7 @@ __all__ = [
     "trace",
     "trace_auto",
     "trace_compacted",
+    "trace_in_ranges",
     "trace_kernel",
     "trace_kernel_phased",
     "trace_kernel_ranges",

@@ -197,18 +197,16 @@ def sharded_trace(
     ctrl: StepControl = StepControl(),
     boundary=None,
     march_dtype=None,
-    ranges=None,
 ) -> RayBatch:
     """March this rank's shard (``shard_rays``) and return it: each rank
     marches its own rays, with no collective. The march is ``trace_auto``
     on the shard's device, so the kernel (with ``kernel_steplim``) on a
     CUDA rank and the plain march otherwise, as the JAX ``_shard_engine``
-    picks the Pallas kernel or the XLA loop. ``march_dtype`` and
-    ``ranges`` are ``trace_auto``'s."""
+    picks the Pallas kernel or the XLA loop. ``march_dtype`` is
+    ``trace_auto``'s."""
     del mesh  # the shard is already this rank's; no collective
     return trace_auto(rays, spin, march_dtype=march_dtype, method=method, dest=dest,
-                      r_max=r_max, steplim=steplim, ctrl=ctrl, boundary=boundary,
-                      ranges=ranges)
+                      r_max=r_max, steplim=steplim, ctrl=ctrl, boundary=boundary)
 
 
 def sharded_emissivity_bins(
@@ -313,25 +311,18 @@ def sharded_caustic_trace(
     steplim: int | None = None,
     ctrl: StepControl = StepControl(),
     march_dtype=None,
-    ranges=None,
 ) -> RayBatch:
     """The caustic bundles' march over the mesh: ``rays`` is the whole
     bundle batch (every rank builds the same one, ``spin`` the propagation
     spin, already negated); each rank pads it, marches its shard, and the
     shards are gathered back to full width on every rank, the padding
     stripped, for the host's Jacobians. The bundles need not share a
-    rank: the differences are taken after the gather.
-
-    In a world of one, ``ranges`` asks ``trace_auto`` for the batch in
-    ranges as they land (an iterator in place of the batch); a mesh of
-    more ranks takes none."""
+    rank: the differences are taken after the gather."""
     n = rays.n_rays
-    if ranges is not None and mesh.size > 1:
-        raise ValueError("the march lands in ranges in a world of one only")
     shard = shard_rays(pad_rays(rays, mesh.size), mesh)
     out = sharded_trace(shard, spin, mesh, method=method, dest=dest, r_max=r_max,
-                        steplim=steplim, ctrl=ctrl, march_dtype=march_dtype, ranges=ranges)
-    return out if ranges is not None else _gather_rays(out, mesh)[:n]
+                        steplim=steplim, ctrl=ctrl, march_dtype=march_dtype)
+    return _gather_rays(out, mesh)[:n]
 
 
 def _parameters(values, like):

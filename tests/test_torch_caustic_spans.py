@@ -2,8 +2,10 @@
 
 A CPU run of ``compute(target="plane")`` with the recorder on records one
 ``rt.compute`` root and, under it, the camera (``rt.source``), the start
-redshift (``rt.redshift``), the march (``rt.march``), the fields' copies to
-the host (``rt.to_host``) and the host's maps (``rt.maps``), in that order.
+redshift (``rt.redshift``), the march (``rt.march``), then for its one
+piece the fields' copies to the host (``rt.to_host``) and the per-pixel
+maps (``rt.maps``), and last the passes over the whole map (``rt.maps``),
+in that order.
 The spans change no output: the maps with the recorder on, off, and with
 the app's spans taken out are bitwise one another.
 """
@@ -21,7 +23,7 @@ from raytrace_tpu_torch.apps import caustics  # noqa: E402
 from raytrace_tpu_torch.sources import ImagePlaneGrid  # noqa: E402
 from raytrace_tpu_torch.utils import profiling  # noqa: E402
 
-CHILDREN = ["rt.source", "rt.redshift", "rt.march", "rt.to_host", "rt.maps"]
+CHILDREN = ["rt.source", "rt.redshift", "rt.march", "rt.to_host", "rt.maps", "rt.maps"]
 
 
 def _plane():

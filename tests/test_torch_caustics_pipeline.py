@@ -1,22 +1,27 @@
-"""The caustic map's pipelined route (``apps.caustics.compute``).
+"""The caustic map's one post-march path (``apps.caustics.compute``).
 
-On a card with no mesh the map splits into pixel ranges, each marched by a
-launch of its own on its own stream under the grid launch
-(``ops.trace_kernel_ranges``), and the host maps each range as soon as its
-rays land. The CPU tests hold the host's half of that route: maps
-assembled range by range (``_pixel_maps`` on each range's rays, laid out
-as the route lays them, ``_assemble``, then ``_whole_maps``) are bitwise
-the whole-array maps of the single-batch route, for the flat source plane
-with bundles and for the source sphere's grid neighbours, whatever the
-number of ranges; the range-major ray order, the rule for the number of
-ranges, and ``trace_auto``'s ranges of a batch marched whole. The ``cuda``
-test holds the route itself on the card: the plane's reduced map that
-holds a stuck ray, the disc under both schedules and the sphere, each in
-seven ranges bitwise in one range and marched whole, with every range's
-span inside ``rt.compute``.
+The march comes back in pieces, each a run of pixel ranges, and the host
+maps each piece as it comes. On a card with no mesh the map splits into
+pixel ranges, each marched by a launch of its own on its own stream under
+the grid launch (``ops.trace_in_ranges``, ``ops.trace_kernel_ranges``);
+on the CPU and over a mesh the map is one range and the batch one piece.
+The CPU tests hold the host's half of that path: maps assembled range by
+range (``_pixel_maps`` on each range's rays, laid out as the card lays
+them, ``_assemble``, then ``_whole_maps``) are bitwise the maps of one
+range, for the flat source plane with bundles and for the source sphere's
+grid neighbours, whatever the number of ranges; the range-major ray
+order, the rule for the number of ranges, ``trace_in_ranges``'s one piece
+of a batch marched whole, and the maps over a world of one (a mesh)
+bitwise those without a mesh. The ``cuda`` test holds the path itself on
+the card: the plane's reduced map that holds a stuck ray, the disc under
+both schedules and the sphere, each in seven ranges bitwise in one range
+and marched whole over a world of one, with every range's span inside
+``rt.compute``.
 
     python -m pytest --noconftest -m cuda tests/test_torch_caustics_pipeline.py
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -28,7 +33,7 @@ from raytrace_tpu_torch import ops  # noqa: E402
 from raytrace_tpu_torch.apps import caustics  # noqa: E402
 from raytrace_tpu_torch.destinations import ThetaLimit  # noqa: E402
 from raytrace_tpu_torch.ops import StepControl  # noqa: E402
-from raytrace_tpu_torch.parallel import RayMesh, sharded_caustic_trace  # noqa: E402
+from raytrace_tpu_torch.parallel import RayMesh  # noqa: E402
 from raytrace_tpu_torch.rays import RAY_STATUS_STEPLIM  # noqa: E402
 from raytrace_tpu_torch.sources import ImagePlaneGrid, image_plane  # noqa: E402
 from raytrace_tpu_torch.utils import profiling  # noqa: E402
@@ -57,10 +62,10 @@ def _assert_bitwise(a, b):
             assert a[k] == b[k], k
 
 
-@pytest.fixture(scope="module", params=sorted(TARGETS))
-def marched(request):
-    """A CPU run's whole-array maps, the host fields it mapped (slot-major,
-    (slots, pixels)) and ``_pixel_maps``'s keywords."""
+@functools.cache
+def _no_mesh(target):
+    """A CPU run with no mesh: the host fields it mapped (slot-major,
+    (slots, pixels)), ``_pixel_maps``'s keywords and the maps."""
     seen = {}
     pixel_maps = caustics._pixel_maps
 
@@ -70,8 +75,14 @@ def marched(request):
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(caustics, "_pixel_maps", spy)
-        maps = _cpu_compute(request.param)
-    return request.param, seen["fields"], seen["kw"], maps
+        maps = _cpu_compute(target)
+    return seen["fields"], seen["kw"], maps
+
+
+@pytest.fixture(scope="module", params=sorted(TARGETS))
+def marched(request):
+    """The target and ``_no_mesh``'s run of it."""
+    return request.param, *_no_mesh(request.param)
 
 
 @pytest.mark.parametrize("ranges", [1, 2, 7, 64])
@@ -127,14 +138,14 @@ def test_ranges_follow_the_pixel_count(n_pixels, ranges):
 @pytest.mark.parametrize("cuts", [[0, 441], [0, 5, 6, 200, 441]])
 def test_trace_auto_gives_a_whole_march_as_one_piece(cuts):
     """Off the card's grid launch (here the plain march on the CPU),
-    ``trace_auto``'s ``ranges`` march the batch whole, counted once as its
-    route, and give it as one piece over every range: bitwise the batch
-    marched without ``ranges``, with no stream."""
+    ``trace_in_ranges`` marches the batch whole with ``trace_auto``,
+    counted once as its route, and gives it as one piece over every range:
+    bitwise ``trace_auto``'s batch, with no stream."""
     rays = image_plane(1e4, 80.0, GRID, 0.998, device="cpu", dtype=torch.float64)
     kw = dict(method="rk4", r_max=1.5e4, steplim=400, dest=ThetaLimit(0.0))
     whole = ops.trace_auto(rays, -0.998, **kw)
     plain = ops.routes["plain"]
-    landed = list(ops.trace_auto(rays, -0.998, ranges=cuts, **kw))
+    landed = list(ops.trace_in_ranges(rays, -0.998, cuts, **kw))
     assert ops.routes["plain"] == plain + 1
     assert len(landed) == 1
     k0, k1, part, stream = landed[0]
@@ -143,12 +154,26 @@ def test_trace_auto_gives_a_whole_march_as_one_piece(cuts):
         assert getattr(part, f).numpy().tobytes() == getattr(whole, f).numpy().tobytes()
 
 
-def test_a_mesh_of_ranks_takes_no_ranges():
-    """Only a world of one marches in ranges: a mesh of two refuses them."""
-    rays = image_plane(1e4, 80.0, GRID, 0.998, device="cpu", dtype=torch.float64)
-    mesh = RayMesh(group=None, rank=0, size=2, device=torch.device("cpu"))
-    with pytest.raises(ValueError, match="world of one"):
-        sharded_caustic_trace(rays, -0.998, mesh, ranges=[0, rays.n_rays])
+# the disc of the card's cases below on a 9 x 9 camera, marched on the CPU
+CPU_DISC = dict(spin=0.998, dist=500.0, incl_deg=60.0, target="disc", r_disc=20.0,
+                steplim=1000, grid=ImagePlaneGrid.from_steps(-12.0, 12.0, 3.0, -12.0, 12.0, 3.0))
+
+
+@pytest.mark.parametrize("target", ["disc", "plane", "sphere"])
+def test_maps_over_a_world_of_one_are_the_maps_without_a_mesh(target):
+    """On the CPU the maps over a world of one (``sharded_caustic_trace``,
+    its piece with no stream) are bitwise those with no mesh
+    (``trace_in_ranges``'s piece): every map, the diagnostics and the
+    suppressed count; for the disc, whose redshift runs on the piece, and
+    for the plane and the sphere."""
+    world = RayMesh(group=None, rank=0, size=1, device=torch.device("cpu"))
+    if target == "disc":
+        alone = caustics.compute(**CPU_DISC, device="cpu")
+        meshed = caustics.compute(**CPU_DISC, device="cpu", mesh=world)
+    else:
+        alone, meshed = _no_mesh(target)[2], _cpu_compute(target, mesh=world)
+    _assert_bitwise(meshed, alone)
+    assert alone["diag"]["hits"] > 0
 
 
 # The benchmark's map (portbench/configs/caustic_plane.json: pixels

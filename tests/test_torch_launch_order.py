@@ -1,25 +1,24 @@
-"""The long-first launch order of the float32 RK45 march kernels, tried
-and not taken.
+"""Launch order: the march kernel's result does not depend on where a ray
+sits in its batch, and the long-first order, tried and not taken.
 
 The launcher marches every batch in its natural order (slot i holds ray
-i) and has no order of its own. chip_smoke.py phase 13 measures the
-long-first one beside it: ``chip_smoke.long_first_order`` puts the rays
+i) and has no order of its own. A long-first order, which put the rays
 nearest the photon shell by their separatrix score (``ops.diff.
-separatrix_score``; on the card the score kernel of the launch-trace
-build, ``chip_smoke.separatrix_scores``) at lane 0 of the first blocks
-(or warps), one each, and the rest in the other slots in their natural
-order; the batch is gathered into that order, marched, and gathered
-back. Held here on the CPU: the order is a permutation of that shape;
-the score agrees with JAX's near the photon shell to the tolerance of
-tests/test_torch_diff_kerr.py; a batch gathered into the order, marched
-by the host build of the kernel's march (``march_host.cpp``, as
+separatrix_score``) at the head of the launch, was measured on the card
+and dropped: the score does not find the rays that march longest. What
+stays is held here on the CPU: the score agrees with JAX's near the
+photon shell to the tolerance of tests/test_torch_diff_kerr.py; on a
+camera strip across the critical curve of the disc-image geometry the
+score's head misses the rays that march longest (the finding that stopped
+the order); and a batch gathered into another order, marched by the host
+build of the kernel's march (``march_host.cpp``, as
 tests/test_torch_march_host.py builds it) and gathered back gives the
-natural order's bits in all 21 fields; and on a camera strip across the
-critical curve of the disc-image geometry the score's head misses the
-rays that march longest (the finding that stopped the order). The
-card's tests (the score kernel against its plain version, the long-first
-launch against the natural one, the launcher's library without the
-score) are marked ``cuda``:
+natural order's bits in all 21 fields, towards each kind of destination,
+in float32 and float64. The caustic map's pixel ranges rely on that: on
+a card they lay the batch out range after range
+(``apps.caustics._range_major``). The card's test (the launcher's one
+launch, and the launch-trace side build of csrc/march.cu, bitwise the
+launcher) is marked ``cuda``:
 
     python -m pytest --noconftest -m cuda tests/test_torch_launch_order.py
 """
@@ -36,7 +35,9 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 import chip_smoke  # noqa: E402
-from raytrace_tpu_torch.destinations import DiscWithISCO, ThetaLimit  # noqa: E402
+from raytrace_tpu_torch.apps import caustics  # noqa: E402
+from raytrace_tpu_torch.destinations import DiscWithISCO, FlatPlane, SphericalShell  # noqa: E402
+from raytrace_tpu_torch.destinations import ThetaLimit  # noqa: E402
 from raytrace_tpu_torch.geometry import isco_radius  # noqa: E402
 from raytrace_tpu_torch.ops import diff, march_kernel, trace  # noqa: E402
 from raytrace_tpu_torch.ops.integrate import StepControl  # noqa: E402
@@ -97,39 +98,6 @@ def test_separatrix_score_matches_jax_near_the_shell(spin):
     assert np.median(near) < 1e-3 < np.median(np.abs(got.numpy()[:len(got) // 2]))
 
 
-@pytest.mark.parametrize("placement", ["warp", "block"])
-@pytest.mark.parametrize("n_long", [0, 1, 7, 40, 10_000])
-def test_long_first_order_is_a_permutation_with_the_head_it_names(placement, n_long):
-    """``chip_smoke.long_first_order`` is a permutation, and ``inverse``
-    undoes it. Its head is the min(n_long, ceil(n / stride)) live rays of
-    smallest |score| (stride 32 a warp, 128 a block; so never more than
-    n / 32), one a slot at 0, stride, 2 stride, ..., in their natural
-    order; no dead ray and no NaN score is in it, and every other ray
-    fills the other slots in its natural order."""
-    n = 1237
-    k, h, Q = (torch.from_numpy(x) for x in _constants(SPIN, n, seed=11))
-    k[5] = float("nan")  # a NaN score
-    live = torch.ones(n, dtype=torch.bool)
-    live[::9] = False
-    score = diff.separatrix_score(k, h, Q, SPIN)
-    perm = chip_smoke.long_first_order(score, live, n_long, placement, torch)
-    assert perm.dtype == torch.int64 and torch.equal(torch.sort(perm).values, torch.arange(n))
-    x = torch.arange(n, dtype=torch.float64) * 3.0
-    assert torch.equal(x[perm][chip_smoke.inverse(perm, torch)], x)
-
-    stride = chip_smoke.PLACEMENT_STRIDE[placement]
-    head_len = min(n_long, -(-n // stride))
-    assert head_len <= -(-n // 32)
-    a = torch.where(live & ~torch.isnan(score), score.abs(), math.inf)
-    want = torch.sort(torch.argsort(a, stable=True)[:head_len]).values
-    head_slots = torch.arange(head_len) * stride
-    assert torch.equal(perm[head_slots], want)
-    assert not bool((~live[perm[head_slots]]).any()) and 5 not in perm[head_slots].tolist()
-    rest = torch.ones(n, dtype=torch.bool)
-    rest[head_slots] = False
-    assert bool((torch.diff(perm[rest]) > 0).all())
-
-
 def _build_host_lib(out_dir):
     cxx = shutil.which("g++")
     if cxx is None:
@@ -151,23 +119,38 @@ def host_lib(tmp_path_factory):
 
 
 def _case(kind, dtype):
-    """(rays, spin, destination, r_max): the 0.1 x 0.2 lamppost grid (630
-    rays) towards ThetaLimit, and image-plane rays (dist 500, incl 60, 41 x
-    41) towards DiscWithISCO, marched with the spin -SPIN."""
+    """(rays, spin, destination, march keywords), the batch cut to a
+    multiple of 5 rays: the 0.1 x 0.2 lamppost grid (630 rays) towards
+    ThetaLimit; image-plane rays (dist 500, incl 60, 41 x 41) towards
+    DiscWithISCO, and at incl 30 (21 x 21) towards FlatPlane, marched with
+    the spin -SPIN; and a spin-0.3 lamppost towards SphericalShell with the
+    boundary at r = 2.5 (tests/test_torch_march_host.py's caustic cases)."""
     if kind == "theta":
-        rays = point_source(SOURCE, 0.0, SPIN, PointSourceGrid.from_steps(0.1, 0.2), device="cpu")
-        return rays.to(dtype=dtype), SPIN, ThetaLimit(), 1000.0
-    grid = ImagePlaneGrid.from_steps(-20.0, 20.0, 1.0, -20.0, 20.0, 1.0)
-    rays = image_plane(500.0, 60.0, grid, SPIN, device="cpu", dtype=dtype)
-    return rays, -SPIN, DiscWithISCO(isco_radius(SPIN), 20.0), 550.0
+        grid = PointSourceGrid.from_steps(0.1, 0.2)
+        rays, spin, dest, kw = (point_source(SOURCE, 0.0, SPIN, grid, device="cpu"), SPIN,
+                                ThetaLimit(), dict(r_max=1000.0))
+    elif kind == "isco":
+        grid = ImagePlaneGrid.from_steps(-20.0, 20.0, 1.0, -20.0, 20.0, 1.0)
+        rays, spin, dest, kw = (image_plane(500.0, 60.0, grid, SPIN, device="cpu", dtype=dtype),
+                                -SPIN, DiscWithISCO(isco_radius(SPIN), 20.0), dict(r_max=550.0))
+    elif kind == "plane":
+        grid = ImagePlaneGrid.from_steps(-10.0, 10.0, 1.0, -10.0, 10.0, 1.0)
+        rays, spin, dest, kw = (image_plane(500.0, 30.0, grid, SPIN, device="cpu", dtype=dtype),
+                                -SPIN, FlatPlane(math.radians(30.0), 0.2, 200.0),
+                                dict(r_max=800.0))
+    else:
+        grid = PointSourceGrid.from_steps(0.1, 0.2, -0.9, 0.9, -3.0, 3.0)
+        rays, spin, dest, kw = (point_source((0.0, 5.0, 1e-3, 0.0), 0.0, 0.3, grid, device="cpu"),
+                                0.3, SphericalShell(40.0), dict(r_max=300.0, boundary=2.5))
+    return rays[:rays.n_rays // 5 * 5].to(dtype=dtype), spin, dest, kw
 
 
-def _host_march(lib, rays, spin, dest, r_max, dtype):
+def _host_march(lib, rays, spin, dest, dtype, r_max, boundary=None):
     """trace_kernel's path (prepare, one launch, finish) with the host
     build in place of the launch."""
     prepared, dest, buf, scalars = march_kernel.prepare(
         rays, spin, method="rk45", dest=dest, r_max=r_max, steplim=3000, ctrl=StepControl(),
-        boundary=None, march_dtype=dtype)
+        boundary=boundary, march_dtype=dtype)
     assert lib.rt_march_host(*march_kernel.pointers(buf), *scalars, 0, None) == 0
     return march_kernel.finish(prepared, buf, dest, spin, refine_crossing=True)
 
@@ -179,22 +162,22 @@ def _assert_same_bits(a, b):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("kind", ["theta", "isco"])
+@pytest.mark.parametrize("kind", ["theta", "isco", "plane", "shell"])
 def test_ordered_host_march_equals_natural(host_lib, kind, dtype):
-    """A RK45 batch gathered into a long-first order (a head of n / 40
-    rays, one a warp), marched by the host build of the kernel's step as
-    trace_kernel marches it and gathered back gives the natural order's
-    result in all 21 fields, bit for bit; so does the order's inverse.
-    This is what phase 13's turns hold on the card."""
-    rays, spin, dest, r_max = _case(kind, dtype)
-    score = diff.separatrix_score(rays.k.double(), rays.h.double(), rays.Q.double(), spin)
-    perm = chip_smoke.long_first_order(score, rays.active, rays.n_rays // 40, "warp", torch)
+    """A RK45 batch gathered into the caustic map's range-major order (the
+    batch read as 5-slot bundles, split into 7 pixel ranges), marched by
+    the host build of the kernel's step as trace_kernel marches it and
+    gathered back gives the natural order's result in all 21 fields, bit
+    for bit; so does the order's inverse."""
+    rays, spin, dest, kw = _case(kind, dtype)
+    bounds = caustics._range_bounds(rays.n_rays // 5, 7)
+    perm = caustics._range_major(bounds, 5, "cpu")
     assert not torch.equal(perm, torch.arange(rays.n_rays))
-    natural = _host_march(host_lib, rays, spin, dest, r_max, dtype)
+    natural = _host_march(host_lib, rays, spin, dest, dtype, **kw)
     assert int((natural.status & 1).sum()) > 100
-    inverse = chip_smoke.inverse(perm, torch)
+    inverse = torch.argsort(perm)
     for order, back in ((perm, inverse), (inverse, perm)):
-        _assert_same_bits(_host_march(host_lib, rays[order], spin, dest, r_max, dtype)[back],
+        _assert_same_bits(_host_march(host_lib, rays[order], spin, dest, dtype, **kw)[back],
                           natural)
 
 
@@ -225,13 +208,13 @@ def test_score_recall_on_a_shadow_edge_grid():
 
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the score kernel and the march kernel have no CPU build")
+        pytest.skip("needs an NVIDIA GPU: the march kernel has no CPU build")
 
 
 @pytest.fixture(scope="module")
 def trace_lib(tmp_path_factory):
     """The launch-trace side build of csrc/march.cu, as chip_smoke.py
-    phase 1 makes it, with the score kernel."""
+    phase 1 makes it."""
     _need_card()
     out = tmp_path_factory.mktemp("launch_trace") / chip_smoke.TRACE_LIB
     cmd = march_kernel.nvcc_command(march_kernel.CSRC / "march.cu", out,
@@ -241,87 +224,22 @@ def trace_lib(tmp_path_factory):
     return chip_smoke.open_trace_library(out)
 
 
-def _bench_rays(dtype):
-    """The bench workload's lamppost (0.01 grid, 125,800 rays) on the card."""
-    return point_source(SOURCE, 0.0, SPIN, PointSourceGrid.from_steps(0.01, 0.01),
-                        device="cuda").to(dtype=dtype)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_score_kernel_matches_plain_on_cuda(trace_lib, dtype):
-    """The score kernel of the trace build gives the plain version's bits
-    (``ops.diff.separatrix_score`` in float64 on the card) on the bench
-    grid's constants, float32 and float64, one launch counted."""
-    rays = _bench_rays(dtype)
-    before = chip_smoke.SCORE["launches"]
-    got = chip_smoke.separatrix_scores(trace_lib, rays.k, rays.h, rays.Q, SPIN, torch)
-    assert chip_smoke.SCORE["launches"] == before + 1
-    want = diff.separatrix_score(rays.k.double(), rays.h.double(), rays.Q.double(), SPIN)
-    assert torch.equal(got.view(torch.int64), want.view(torch.int64))
-
-
-def _assert_same_bits_cuda(a, b):
-    for f in FIELDS:
-        x, y = getattr(a, f).cpu().numpy(), getattr(b, f).cpu().numpy()
-        assert np.array_equal(x.view(np.uint8), y.view(np.uint8)), f
-
-
-def _orders_agree(rays, spin, kw):
-    """The batch gathered into the long-first order (a head of 0.1% of it,
-    one a block), marched by trace_kernel (one launch) and gathered back,
-    against the natural launch: all 21 fields bit for bit. Returns the
-    natural result."""
-    kw = dict(kw, method="rk45", march_dtype=torch.float32)
-    natural = march_kernel.trace_kernel(rays, spin, **kw)
-    score = diff.separatrix_score(rays.k.double(), rays.h.double(), rays.Q.double(), spin)
-    perm = chip_smoke.long_first_order(score, rays.active, math.ceil(1e-3 * rays.n_rays),
-                                       "block", torch)
-    before = march_kernel.launches
-    long_first = march_kernel.trace_kernel(rays[perm], spin, **kw)
-    assert march_kernel.launches == before + 1
-    _assert_same_bits_cuda(long_first[chip_smoke.inverse(perm, torch)], natural)
-    return natural
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["theta", "isco"])
-def test_long_first_launch_matches_natural_on_cuda(kind):
-    """Both float32 RK45 kernels (ThetaLimit, DiscWithISCO) give the
-    natural launch's result in all 21 fields, bit for bit, in the
-    long-first order: on the bench grid (125,800 rays, steplim 40,000), and
-    on a crop of the disc-image batch (par_example/imageplane_disc_image.par:
-    1001 x 1001 rays over +-30 at dist 1e4, incl 80) holding its rays that
-    stick at steplim 1e5 and their neighbours two rows and columns about."""
-    _need_card()
-    dest = DiscWithISCO(isco_radius(SPIN), 20.0) if kind == "isco" else ThetaLimit()
-    _orders_agree(_bench_rays(torch.float32), SPIN, dict(dest=dest, r_max=1000.0,
-                                                          steplim=40_000))
-    n = 1001
-    grid = ImagePlaneGrid.from_steps(-30.0, 30.0, 60.0 / 1000, -30.0, 30.0, 60.0 / 1000)
-    rays = image_plane(1e4, 80.0, grid, SPIN, device="cuda", work_dtype=torch.float32)
-    rays = redshift_start(rays, -SPIN, 0.0, reverse=True).to(dtype=torch.float32)
-    kw = dict(dest=DiscWithISCO(isco_radius(SPIN), 30.0) if kind == "isco" else ThetaLimit(),
-              r_max=1.1e4, steplim=100_000)
-    full = march_kernel.trace_kernel(rays, -SPIN, method="rk45", march_dtype=torch.float32, **kw)
-    stuck = torch.nonzero((full.status & 8) != 0).flatten()
-    assert len(stuck) > 0
-    near = (stuck[:, None] + (torch.arange(-2, 3, device=stuck.device)[:, None] * n
-                              + torch.arange(-2, 3, device=stuck.device)).flatten()).flatten()
-    crop = torch.unique(near.clamp(0, n * n - 1))
-    out = _orders_agree(rays[crop], -SPIN, kw)
-    assert int(((out.status & 8) != 0).sum()) == len(stuck)
-
-
 @pytest.mark.cuda
 def test_launcher_keeps_the_natural_order_on_cuda(trace_lib):
     """The long-first order was tried and not taken (its score does not
     find the rays that outlive the bulk): ``trace_kernel`` launches the
-    float32 RK45 kernel once, and the launcher's library has no score
-    kernel; only the trace build has it."""
-    rays = _bench_rays(torch.float32)
+    float32 RK45 kernel once, on the batch as it comes, here the bench
+    workload's lamppost (0.01 grid, 125,800 rays). The launch-trace side
+    build marches it to the same bits in all 21 fields, recording a start
+    and a store time for every ray."""
+    rays = point_source(SOURCE, 0.0, SPIN, PointSourceGrid.from_steps(0.01, 0.01),
+                        device="cuda").to(dtype=torch.float32)
+    kw = dict(method="rk45", steplim=3000, march_dtype=torch.float32)
     before = march_kernel.launches
-    march_kernel.trace_kernel(rays, SPIN, method="rk45", steplim=3000)
+    out = march_kernel.trace_kernel(rays, SPIN, **kw)
     assert march_kernel.launches == before + 1
-    assert not hasattr(march_kernel.load(), "rt_separatrix_score")
-    assert hasattr(trace_lib, "rt_separatrix_score")
+    longest = torch.argsort(out.steps.abs(), descending=True, stable=True)[:64]
+    tables, _, traced = chip_smoke.launch_trace(trace_lib, rays, SPIN, kw, longest, torch)
+    assert march_kernel.launches == before + 1
+    assert not chip_smoke.same_bits(traced, out, torch)
+    assert (tables["start"] > 0).all() and (tables["stop"] >= tables["start"]).all()
