@@ -7,8 +7,8 @@ Phases, one line each with its seconds; any failed check raises, so the
 script exits non-zero:
   0. device: name and power limit, TF32 off;
   1. build the march kernel from csrc/ with nvcc (ptxas registers, stack
-     and spills of each kernel: the 24 grid-launch kernels and the
-     lane-refill one); beside it, in parallel, the same source as a cubin,
+     and spills of each kernel: the 24 grid-launch kernels, the
+     lane-refill one and the bins' three scatter kernels); beside it, in parallel, the same source as a cubin,
      whose nvdisasm gives the least and the most that one full iteration
      of each grid kernel's march loop issues, by pipe (loop_issue; the
      least are the bound's instructions), the
@@ -25,7 +25,9 @@ script exits non-zero:
      tests/test_emissivity.py:158-196;
   4. full size: the emissivity CLI on par_example/emissivity.par (about
      2.5 M rays, RK45), and again with --integrator=rk4; the kernel's
-     launch count is zeroed before and read after each run. Then the
+     launch count and the bins' scatter kernel's (one a run) are zeroed
+     before and read after each run, and the RK45 run's scatter inputs
+     kept for phase 8b (scatter_inputs). Then the
      kernel against the plain march on that run's own batch (the par
      file's lamppost after redshift_start, float32 march, the par file's
      spin), with the float32 parity gates, as phase 12 holds its batches
@@ -44,9 +46,21 @@ script exits non-zero:
   8. image full width: main, main_rd and main_isco on
      par_example/imageplane_disc_image.par (1,002,001 rays; main_isco also
      with --integrator=rk4, main also with --integrator=euler), the launch
-     count zeroed before and read after each run, the FITS file read back;
-     then the kernel against the plain march on that batch
+     count and the scatter kernel's (one a run) zeroed before and read
+     after each run, main_isco's RK45 scatter inputs kept, the FITS file
+     read back; then the kernel against the plain march on that batch
      (hold_full_width): isco rk45, euler x theta and isco rk4;
+ 8b. the bins at the benchmark cells' shapes (hold_bins): the scatter
+     kernel on the inputs kept in phases 4 and 8, emis_table's (2,507,316
+     rays, 100 bins, the count and 4 weights: the block-local route) and
+     image_isco_incl's (1,002,001 rays, 10^6 pixels, the count and 6
+     weights: the global route), against the index_add_ route
+     (masked_segment_sum) on the same card tensors: counts exact, sums to
+     rtol 1e-12, the block-local route bitwise again, its grid
+     (reductions.blocks_per_sm an SM) resident at once by the kernel's
+     registers too; both timed with CUDA events (best of 3), and the
+     bound: the bytes read (ids, mask, the weights of the rays in the
+     mask) and written (the bins) over the memory rate;
   9. image timing with CUDA events: each new instantiation against its
      plain version on the 82 x 82 grid (the plain march's float32 run of
      phase 6, timed there);
@@ -188,7 +202,9 @@ where that is the lane-refill schedule, bitwise the grid launch's. On the
 card the plain march replays each compaction epoch's iteration as a CUDA
 graph (ops/integrate.py).
 The last lines are phase 13's launch-trace record, phase 19's, phase 20's,
-the per-kernel JSON record and the device record.
+the per-kernel JSON record (the march kernels, then the scatter kernel's
+two routes from phase 8b: ms, plain_ms the index_add_ route, bound_ms,
+launches on the main paths of phases 4 and 8) and the device record.
 A record's ms is its main path's batch at the CLI's steplim under the
 schedule the launcher gives it; bound_ms the largest of its issue times
 (each pipe's instructions, and all of them, over the card's rates; see
@@ -349,6 +365,7 @@ PIPES = tuple(PIPE_LANES) + ("total",)
 # instructions of one loop iteration by pipe; the card's SMs and clock
 STEP_ISSUE = {}
 CARD = {}
+BIN_REGS = {}  # the bins' scatter kernels' registers (phase 1): route -> count
 HBM_BYTES_PER_S = 3.35e12
 KINDS = ("theta", "isco", "plane", "shell")
 # CUDA math library subroutines that only its slow paths call, and the
@@ -1603,12 +1620,11 @@ def check_slice_output(entry, outfile, n_rays):
     return f"{rows.shape[0]} bins, {counts.sum():.0f} rays binned"
 
 
-def ptxas_lines(log):
-    """One line per kernel of nvcc's -Xptxas -v output: schedule, method,
-    destination and dtype, then registers, stack and spills."""
+def ptxas_kernels(log):
+    """nvcc's -Xptxas -v output by kernel (mangled name): registers
+    ("regs"), stack and spills, as strings."""
     import re
 
-    methods, dests = {1: "rk4", 2: "rk45", 3: "euler"}, ("theta", "isco", "plane", "shell")
     kernels, name = {}, None
     for line in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
@@ -1623,17 +1639,127 @@ def ptxas_lines(log):
         m = re.search(r"Used (\d+) registers", line)
         if m and name:
             kernels.setdefault(name, {})["regs"] = m.group(1)
+    return kernels
+
+
+def ptxas_lines(log):
+    """One line per kernel of nvcc's -Xptxas -v output: the march kernels'
+    schedule, method, destination and dtype, the bins' scatter kernels by
+    name; then registers, stack and spills."""
+    import re
+
+    methods, dests = {1: "rk4", 2: "rk45", 3: "euler"}, ("theta", "isco", "plane", "shell")
     out = []
-    for name, k in sorted(kernels.items()):
+    for name, k in sorted(ptxas_kernels(log).items()):
         m = re.search(r"(march_kernel|march_refill_kernel)I([fd])Li(\d)ELi(\d)E", name)
-        if not m:
+        b = re.search(r"bin_scatter_\w+?_kernel", name)
+        if m:
+            sched = "grid" if m.group(1) == "march_kernel" else "refill"
+            what = (f"{methods[int(m.group(3))]} x {dests[int(m.group(4))]} "
+                    f"{'f32' if m.group(2) == 'f' else 'f64'} ({sched})")
+        elif b:
+            what = b.group(0)
+        else:
             continue
-        sched = "grid" if m.group(1) == "march_kernel" else "refill"
-        out.append(f"{methods[int(m.group(3))]} x {dests[int(m.group(4))]} "
-                   f"{'f32' if m.group(2) == 'f' else 'f64'} ({sched}): {k.get('regs')} registers, "
-                   f"stack {k.get('stack')} B, spill stores {k.get('stores')} B, "
-                   f"loads {k.get('loads')} B")
+        out.append(f"{what}: {k.get('regs')} registers, stack {k.get('stack')} B, "
+                   f"spill stores {k.get('stores')} B, loads {k.get('loads')} B")
     return out
+
+
+@contextlib.contextmanager
+def scatter_inputs(reductions):
+    """``reductions.masked_bins`` wrapped while inside: the arguments of
+    each call (columns, ids, mask, n_bins, dtype) appended to the list
+    yielded."""
+    seen, real = [], reductions.masked_bins
+
+    def keep(*args):
+        seen.append(args)
+        return real(*args)
+
+    reductions.masked_bins = keep
+    try:
+        yield seen
+    finally:
+        reductions.masked_bins = real
+
+
+# phase 8b: the route each benchmark cell's bins take; an H100 SM's registers
+BIN_ROUTES = {"emis_table": "block", "image_isco_incl": "global"}
+SM_REGISTERS = 65536
+
+
+def hold_bins(scatters, main_launches, torch):
+    """Phase 8b: the scatter kernel on each cell's kept inputs
+    ``scatters[cell] = (columns, ids, mask, n_bins, dtype)`` against the
+    index_add_ route on the same card tensors (counts exact, sums to rtol
+    1e-12, the block-local route bitwise again), both timed, and its bound;
+    the block-local grid resident at once. Returns the kernels line's
+    records; ``main_launches`` by route are phases 4 and 8's."""
+    from raytrace_tpu_torch.ops import reductions
+
+    records = []
+    for cell, (columns, ids, mask, n_bins, dtype) in scatters.items():
+        n, k = ids.numel(), len(columns)
+        route = reductions.bin_route(ids.device, n, n_bins, k)
+        check(route == BIN_ROUTES[cell] and dtype == torch.float64,
+              f"{cell}: the bins took the {route} route in {dtype}")
+        warps = reductions.block_warps(n_bins, k)
+        if warps:
+            regs = int(BIN_REGS["block"])
+            per_sm = reductions.blocks_per_sm(warps, (1 + k) * n_bins)
+            check(per_sm >= 1 and per_sm * warps * 32 * regs <= SM_REGISTERS,
+                  f"{cell}: {per_sm} blocks of {warps} warps at {regs} registers a thread "
+                  "are not resident at once on one SM")
+
+        def index_add():
+            ones = torch.ones(ids.shape, dtype=dtype, device=ids.device)
+            return torch.stack([reductions.masked_segment_sum(v, ids, mask, n_bins)
+                                for v in (ones, *columns)])
+
+        plain_ms, want = cuda_ms(index_add, torch)
+        before = reductions.launches
+        ms, got = cuda_ms(lambda: reductions.bin_scatter(columns, ids, mask, n_bins, warps),
+                          torch)
+        torch.cuda.synchronize()
+        check(reductions.launches == before + 4, f"{cell}: not one scatter launch a call")
+        check(got.shape == want.shape and torch.equal(got[0], want[0]),
+              f"{cell}: the kernel's counts differ from index_add_'s")
+        check(bool(torch.isclose(got, want, rtol=1e-12, atol=0, equal_nan=True).all()),
+              f"{cell}: the kernel's sums differ from index_add_'s beyond rtol 1e-12")
+        nonzero = want != 0
+        rel = float(((got - want).abs()[nonzero] / want.abs()[nonzero]).nan_to_num(0).max())
+        bitwise = None
+        if warps:
+            again = reductions.bin_scatter(columns, ids, mask, n_bins, warps)
+            bitwise = bool(torch.equal(again.view(torch.int64), got.view(torch.int64)))
+            check(bitwise, f"{cell}: the block-local route is not the same bits again")
+        in_mask = int(mask.sum())
+        moved = n * (ids.element_size() + mask.element_size()) + in_mask * k * 8 + got.numel() * 8
+        bound_ms = moved / HBM_BYTES_PER_S * 1e3
+        print(f"bins {cell}: {n} rays, {in_mask} in the mask, {n_bins} bins x {k + 1} rows, "
+              f"{route} route ({warps} warps a block"
+              + (f", {reductions.blocks_per_sm(warps, (1 + k) * n_bins)} blocks an SM"
+                 if warps else "") + f"): kernel {ms:.4f} ms (best of 3), the "
+              f"index_add_ route {plain_ms:.3f} ms ({plain_ms / ms:.0f}x), bound {bound_ms:.4f} "
+              f"ms ({moved} B; {ms / bound_ms:.1f}x); counts equal, sums within {rel:.2e}"
+              + (f", bitwise again {bitwise}" if warps else ""))
+        records.append({
+            "name": f"bin_scatter_{route}",
+            "route": "cuda",
+            "source": "raytrace_tpu_torch/csrc/bins.cu",
+            "replaces": "raytrace_tpu/ops/reductions.py:41 (XLA scatter-add, no TPU kernel)",
+            "launches": main_launches[route],
+            "max_rel_err": rel,
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "registers": int(BIN_REGS[route]),
+            "warps_per_block": warps,
+            "batch": f"{cell}, {n} rays, {in_mask} in the mask, {n_bins} bins x {k + 1} rows",
+        })
+    return records
 
 
 def slice_phases(launches, torch):
@@ -2593,7 +2719,7 @@ def resume_shard_phases(launches, torch):
               f"the march+bin phase spans {idle['span_ms']:.3f} ms, the card busy "
               f"{idle['busy_ms']:.3f} ms over {idle['device_events']} events: idle share "
               f"{idle['idle_share']:.4f}; output columns bitwise the run without the key: "
-              f"{same_cols} (the rest within rtol 1e-12: index_add_ adds float64 in any order)")
+              f"{same_cols} (the rest within rtol 1e-12: the bins may add float64 in another order)")
         nums["20c"] = dict(cli_s=cli_s, phases=phases, bitwise_columns=same_cols, **idle)
 
     with Phase("20d shard: world of one over NCCL, in process"):
@@ -2747,7 +2873,7 @@ def main() -> int:
     from raytrace_tpu_torch.config import Config
     from raytrace_tpu_torch.destinations import SphericalShell
     from raytrace_tpu_torch.io import read_fits
-    from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, trace, trace_auto
+    from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, reductions, trace, trace_auto
     from raytrace_tpu_torch.sources import ImagePlaneGrid, PointSourceGrid
 
     # lives until the script ends: phase 8 writes the disc image phase 17 folds
@@ -2773,6 +2899,12 @@ def main() -> int:
                 print(f"build: nvcc sm_90a in {time.perf_counter() - t0:.1f} s")
                 for line in ptxas_lines(log):
                     print(f"ptxas: {line}")
+                for name, k in ptxas_kernels(log).items():
+                    for route in ("block", "global"):
+                        if f"bin_scatter_{route}_kernel" in name:
+                            BIN_REGS[route] = k["regs"]
+                check(set(BIN_REGS) == {"block", "global"},
+                      f"ptxas named the bins' scatter kernels' registers {BIN_REGS}")
                 for name, proc in probes.items():
                     out, _ = proc.communicate()
                     check(proc.returncode == 0, f"nvcc of the {name} failed:\n{out[-3000:]}")
@@ -2856,6 +2988,8 @@ def main() -> int:
               f"midspin emis/redshift/time off: {devs}")
 
     launches = {}
+    scatters = {}  # benchmark cell -> the bins' scatter inputs of its main path (phase 8b)
+    bin_launches = {"block": 0, "global": 0}  # the main paths' scatter launches, by route
     held = {}  # (main path, variant) -> (parity record, plain ms, plain steplim)
     batches = []  # (main path, variant, rays, spin, march keywords, method, march dtype)
     with Phase("4 full size"):
@@ -2868,13 +3002,20 @@ def main() -> int:
                 if method == "rk4":
                     argv.append("--integrator=rk4")
                 march_kernel.launches = 0
+                reductions.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                rc = emissivity.main(argv)
+                with scatter_inputs(reductions) as seen:
+                    rc = emissivity.main(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 launches[f"{method}_theta"] = march_kernel.launches
                 check(rc == 0, f"emissivity main returned {rc}")
+                check(reductions.launches == 1 and len(seen) == 1,
+                      f"emissivity main ({method}): {reductions.launches} scatter launches")
+                bin_launches["block"] += reductions.launches
+                if method == "rk45":
+                    scatters["emis_table"] = seen[0]
                 check(march_kernel.launches > 0, f"main path ({method}) never launched the kernel")
                 prof = np.loadtxt(outfile)
                 check(prof.shape == (100, 7), f"output shape {prof.shape}")
@@ -2972,14 +3113,21 @@ def main() -> int:
                 if extra:
                     argv.append(extra)
                 march_kernel.launches = 0
+                reductions.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                rc = getattr(imageplane_disc_image, entry)(argv)
+                with scatter_inputs(reductions) as seen:
+                    rc = getattr(imageplane_disc_image, entry)(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
                 n_launch = march_kernel.launches
                 launches[variant] = launches.get(variant, 0) + n_launch
                 check(rc == 0, f"{entry} returned {rc}")
+                check(reductions.launches == 1 and len(seen) == 1,
+                      f"{entry} {extra or ''}: {reductions.launches} scatter launches")
+                bin_launches["global"] += reductions.launches
+                if entry == "main_isco" and not extra:
+                    scatters["image_isco_incl"] = seen[0]
                 check(n_launch > 0, f"main path ({entry} {extra or ''}) never launched the kernel")
                 fits = read_fits(str(outfile))
                 hdr = fits["_headers"]["PRIMARY"]
@@ -3010,6 +3158,10 @@ def main() -> int:
             batches.append(("disc image", f"{method}_{kind}", rays, -SPIN,
                             dict(dest=image_dest(kind, 30.0), r_max=1.1e4), method, torch.float32))
         del out
+
+    with Phase("8b bins at the cells' shapes"):
+        bin_records = hold_bins(scatters, bin_launches, torch)
+        scatters.clear()
 
     with Phase("9 image timing"):
         rays = image_rays(isco_grid, torch.float32, torch)
@@ -3209,6 +3361,7 @@ def main() -> int:
             "lone_floor_ms": t["lone_floor_ms"],
             "batch": f"{path}, {t['n_rays']} rays",
         })
+    kernels += bin_records
     # the bound counts accepted steps; a rejected trial is one more full
     # iteration of the loop, so the bound over the trials is the bound times
     # trials / accepted steps (the emissivity batch's finished lanes)

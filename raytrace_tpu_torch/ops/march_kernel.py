@@ -16,7 +16,8 @@ device of the batch.
 The kernel is compiled on first use with nvcc into ``_build/`` next to the
 package (rebuilt when a source is newer than the library) and loaded with
 ctypes. A missing nvcc or a failed build raises; nothing here falls back to
-the plain version.
+the plain version. The same library holds the bins' scatter kernel
+(``csrc/bins.cu``), which ``ops/reductions.py::bin_scatter`` launches.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _LIB = BUILD_DIR / "libraytrace_march.so"
-_SOURCES = (CSRC / "march.cu", CSRC / "march.cuh")
+_LIB_SOURCES = (CSRC / "march.cu", CSRC / "bins.cu")
+_SOURCES = (*_LIB_SOURCES, CSRC / "march.cuh")
 
 # The 21 arrays the kernel marches, in the order of rt_march_launch.
 F_FIELDS = (
@@ -108,28 +110,31 @@ def _nvcc() -> str:
 
 
 def nvcc_command(source, out, defines=()) -> list:
-    """nvcc's command line for a march library: sm_90a, no FMA contraction
-    (``--fmad=false``), so the kernel rounds like the plain march (see the
-    note in march.cu), and ``-Xptxas -v`` (registers, stack and spills per
-    kernel); ``defines`` adds ``-D`` flags (``RT_LAUNCH_TRACE``: the
-    launch-trace side build, which chip_smoke.py makes)."""
+    """nvcc's command line for a march library from ``source`` (a path, or
+    several): sm_90a, no FMA contraction (``--fmad=false``), so the kernel
+    rounds like the plain march (see the note in march.cu), and ``-Xptxas
+    -v`` (registers, stack and spills per kernel); ``defines`` adds ``-D``
+    flags (``RT_LAUNCH_TRACE``: the launch-trace side build, which
+    chip_smoke.py makes)."""
+    sources = [source] if isinstance(source, (str, os.PathLike)) else list(source)
     return [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
         "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        *(f"-D{d}" for d in defines), "-o", str(out), str(source),
+        *(f"-D{d}" for d in defines), "-o", str(out), *map(str, sources),
     ]
 
 
 def build(force: bool = False) -> str:
-    """Compile ``csrc/march.cu`` into ``_build/libraytrace_march.so``
-    (``nvcc_command``) unless the library is newer than its sources.
-    Returns nvcc's output, empty when the library was up to date."""
+    """Compile ``csrc/march.cu`` and ``csrc/bins.cu`` into
+    ``_build/libraytrace_march.so`` (``nvcc_command``) unless the library
+    is newer than its sources. Returns nvcc's output, empty when the
+    library was up to date."""
     if not force and _LIB.exists():
         if _LIB.stat().st_mtime >= max(s.stat().st_mtime for s in _SOURCES):
             return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = BUILD_DIR / f".{_LIB.name}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(CSRC / "march.cu", tmp), capture_output=True, text=True)
+    proc = subprocess.run(nvcc_command(_LIB_SOURCES, tmp), capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{proc.stderr}")
     os.replace(tmp, _LIB)
@@ -137,12 +142,19 @@ def build(force: bool = False) -> str:
 
 
 def open_library(path):
-    """A built march library, its entry points declared."""
+    """A built march library, its entry points declared (the bins' where
+    it has them: the launch-trace side build has not)."""
     lib = ctypes.CDLL(str(path))
     lib.rt_march_launch.argtypes = argtypes()
     lib.rt_march_launch.restype = ctypes.c_int
     lib.rt_march_kernel_info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
     lib.rt_march_kernel_info.restype = ctypes.c_int
+    if hasattr(lib, "rt_bin_scatter_launch"):
+        c = ctypes
+        lib.rt_bin_scatter_launch.argtypes = [c.c_void_p, c.c_void_p, c.c_void_p, c.c_int,
+                                              c.c_int64, c.c_int64, c.c_int, c.c_int64,
+                                              c.c_void_p, c.c_void_p, c.c_void_p]
+        lib.rt_bin_scatter_launch.restype = c.c_int
     return lib
 
 

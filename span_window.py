@@ -32,7 +32,11 @@ also writes it to a file):
   passed before their job's last march kernel ended (the caustic map's
   host maps hidden behind its march), ``maps_hidden_by_row`` the same by
   row; ``late_ranges_per_job``: the pixel ranges a job mapped after its
-  last march kernel ended, and ``late_ranges_by_row`` each row's counts.
+  last march kernel ended, and ``late_ranges_by_row`` each row's counts;
+- ``bins_kernel_share``: the bins' scatters that took the scatter kernel
+  (``rt.bins.kernel`` spans) over all the window's scatters (those and
+  ``rt.bins.index_add``), None where it has none; ``bins_kernel_by_row``
+  the same by row.
 
 A reader of the benchmark's own would take these from the same
 recording; this script leaves the benchmark's files as they are.
@@ -45,6 +49,7 @@ import json
 import os
 import sys
 import time
+from bisect import bisect_left
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -97,13 +102,18 @@ def maps_hidden(window: harness.Window, program: list) -> dict:
     last (the passes over the whole map), each the maps of the ranges that
     landed together; a job with one span (the single-batch route) maps its
     one range in it."""
+    march = sorted((s, e) for name, kind, s, e in window.events
+                   if kind == "kernel" and is_march(name))
+    all_maps = sorted((s, e) for name, _, s, e in program if name == "rt.maps")
+    march_starts, maps_starts = [s for s, _ in march], [s for s, _ in all_maps]
     hidden, total, rows = 0.0, 0.0, {}
     for job, start, end in window.spans:
         if not job.startswith("job:"):
             continue
-        ends = [e for name, kind, s, e in window.events
-                if kind == "kernel" and is_march(name) and start <= s < end]
-        maps = sorted((s, e) for name, _, s, e in program if name == "rt.maps" and start <= s < end)
+        # the march kernels and rt.maps spans that started in [start, end)
+        ends = [e for _, e in march[bisect_left(march_starts, start):
+                                    bisect_left(march_starts, end)]]
+        maps = all_maps[bisect_left(maps_starts, start):bisect_left(maps_starts, end)]
         if not ends or not maps:
             continue
         last = max(ends)
@@ -120,6 +130,27 @@ def maps_hidden(window: harness.Window, program: list) -> dict:
         "maps_hidden_by_row": {job: h / t for job, (h, t, _) in sorted(rows.items()) if t},
         "late_ranges_per_job": sum(lates) / len(lates) if lates else None,
         "late_ranges_by_row": {job: sorted(set(n)) for job, (_, _, n) in sorted(rows.items())},
+    }
+
+
+def bins_kernel(window: harness.Window, program: list) -> dict:
+    """The bins' scatters by route: the ``rt.bins.kernel`` spans over
+    those and the ``rt.bins.index_add`` spans, over the window and by the
+    row of the ``job:<i>`` span each started in."""
+    routes = ("rt.bins.kernel", "rt.bins.index_add")
+    scatters = [(name, s) for name, _, s, _ in program if name in routes]
+    rows = {}
+    for name, s in scatters:
+        job = next((j for j, js, je in window.spans if j.startswith("job:") and js <= s < je),
+                   None)
+        if job is not None:
+            row = rows.setdefault(job, [0, 0])
+            row[0] += name == routes[0]
+            row[1] += 1
+    kernel = sum(name == routes[0] for name, _ in scatters)
+    return {
+        "bins_kernel_share": kernel / len(scatters) if scatters else None,
+        "bins_kernel_by_row": {job: k / n for job, (k, n) in sorted(rows.items())},
     }
 
 
@@ -166,6 +197,7 @@ def report(window: harness.Window, program: list, launches: list, uncounted: int
         "breakdown": harness.breakdown(harness.Window(window.events, labelled, window.jobs,
                                                       window.window_s)),
         **maps_hidden(window, program),
+        **bins_kernel(window, program),
     }
 
 

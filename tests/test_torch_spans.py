@@ -116,9 +116,10 @@ CHILDREN = {
 @pytest.mark.parametrize("run", list(CHILDREN))
 def test_compute_records_the_layer_spans(run):
     """A CPU run of ``compute`` records one ``rt.compute`` root and, under
-    it, the layers' spans in the order they run; every span lies inside its
-    parent, stamped on the ``time.time_ns`` clock, and the plain march
-    launches nothing."""
+    it, the layers' spans in the order they run, under ``rt.bins`` its
+    scatter's route span (``rt.bins.index_add`` on the CPU); every span
+    lies inside its parent, stamped on the ``time.time_ns`` clock, and the
+    plain march launches nothing."""
     profiling.start()
     t0 = time.time_ns()
     out = _image() if run == "image isco" else _emissivity(run.split()[1])
@@ -130,8 +131,11 @@ def test_compute_records_the_layer_spans(run):
     assert all(n.startswith("rt.") for n in names)
     assert names[0] == "rt.compute" and rec.spans[0][1] == -1
     assert [s[0] for s in rec.spans if s[1] == 0] == CHILDREN[run]
+    # the bins' one scatter takes index_add_ on the CPU, in its route span
+    bins = names.index("rt.bins")
+    assert [s[0] for s in rec.spans if s[1] == bins] == ["rt.bins.index_add"]
     # the plain march opens no span of the kernel's
-    assert len(rec.spans) == 1 + len(CHILDREN[run])
+    assert len(rec.spans) == 2 + len(CHILDREN[run])
     for name, parent, s, e in rec.spans:
         assert t0 <= s <= e <= t1
         if parent >= 0:
@@ -379,3 +383,25 @@ def test_span_window_maps_hidden_on_a_hand_built_window():
     single = span_window.maps_hidden(
         harness.Window(events[:2], spans[:1], 1, 1.0), [("rt.maps", -1, 0.61, 0.8)])
     assert single["maps_hidden_share"] == 0.0 and single["late_ranges_per_job"] == 1
+
+
+def test_span_window_bins_kernel_share_on_a_hand_built_window():
+    """``span_window.bins_kernel``: the scatters that took the kernel
+    (``rt.bins.kernel``) over all the window's scatters (and
+    ``rt.bins.index_add``), overall and by the row of the ``job:<i>`` span
+    each started in; a scatter outside every job counts only overall, and
+    a window without a scatter reads None."""
+    import span_window
+    from portbench import harness
+
+    spans = [("job:0", 0.0, 1.0), ("job:1", 1.0, 2.0), ("job:0", 2.0, 3.0)]
+    program = [("rt.compute", -1, 0.0, 0.9), ("rt.bins", 0, 0.5, 0.6),
+               ("rt.bins.kernel", 1, 0.51, 0.52), ("rt.compute", -1, 1.0, 1.9),
+               ("rt.bins.index_add", 3, 1.5, 1.6), ("rt.bins.kernel", -1, 2.5, 2.6),
+               ("rt.bins.kernel", -1, 3.5, 3.6)]
+    window = harness.Window([], spans, 3, 4.0)
+    out = span_window.report(window, program, [], 0)
+    assert out["bins_kernel_share"] == 0.75
+    assert out["bins_kernel_by_row"] == {"job:0": 1.0, "job:1": 0.0}
+    none = span_window.bins_kernel(window, program[:2])
+    assert none == {"bins_kernel_share": None, "bins_kernel_by_row": {}}
