@@ -104,10 +104,10 @@ def _image():
 
 # each run's spans under rt.compute, in the order they open
 CHILDREN = {
-    "emissivity plain": ["rt.areas", "rt.source", "rt.redshift", "rt.march", "rt.redshift",
-                         "rt.bins", "rt.to_host"],
-    "emissivity rd": ["rt.areas", "rt.source", "rt.redshift", "rt.march", "rt.redshift",
-                      "rt.bins", "rt.to_host"],
+    "emissivity plain": ["rt.source", "rt.redshift", "rt.march", "rt.redshift", "rt.bins",
+                         "rt.areas", "rt.to_host"],
+    "emissivity rd": ["rt.source", "rt.redshift", "rt.march", "rt.redshift", "rt.bins",
+                      "rt.areas", "rt.to_host"],
     "image isco": ["rt.source", "rt.redshift", "rt.march", "rt.redshift", "rt.bins",
                    "rt.to_host"],
 }
