@@ -8,7 +8,8 @@ script exits non-zero:
   0. device: name and power limit, TF32 off;
   1. build the march kernel from csrc/ with nvcc (ptxas registers, stack
      and spills of each kernel: the 24 grid-launch kernels, the
-     lane-refill one and the bins' three scatter kernels); beside it, in parallel, the same source as a cubin,
+     lane-refill one, the bins' three scatter kernels and the two redshift
+     kernels); beside it, in parallel, the same source as a cubin,
      whose nvdisasm gives the least and the most that one full iteration
      of each grid kernel's march loop issues, by pipe (loop_issue; the
      least are the bound's instructions), the
@@ -24,14 +25,25 @@ script exits non-zero:
      (spin 0.5, h 3) against its golden under the gates of
      tests/test_emissivity.py:158-196;
   4. full size: the emissivity CLI on par_example/emissivity.par (about
-     2.5 M rays, RK45), and again with --integrator=rk4; the kernel's
-     launch count and the bins' scatter kernel's (one a run) are zeroed
-     before and read after each run, and the RK45 run's scatter inputs
-     kept for phase 8b (scatter_inputs). Then the
+     2.5 M rays, RK45), again with --integrator=rk4, and main_rd on
+     par_example/emissivity_rd.par (RK4 to FlatDisc); the kernel's launch
+     count, the bins' scatter kernel's (one a run) and the redshift
+     kernels' (two a run: emit_kernel, emis_weights_kernel) are zeroed
+     before and read after each run, the RK45 run's scatter inputs kept
+     for phase 8b (scatter_inputs) and each run's redshift kernel inputs
+     for phase 4b (redshift_inputs). Then the
      kernel against the plain march on that run's own batch (the par
      file's lamppost after redshift_start, float32 march, the par file's
      spin), with the float32 parity gates, as phase 12 holds its batches
      (hold_full_width);
+ 4b. the redshift kernels (hold_redshift) on the inputs kept in phase 4,
+     each run's: emit_kernel against redshift_start and
+     emis_weights_kernel against the app's torch chain up to the bins'
+     scatter (torch_redshift_chain: the redshift, the variant's hit test,
+     radial_bin_index and the four weights) on the same card tensors,
+     every bit equal; both timed with CUDA events (best of 3), and the
+     bound: the bytes read and written (72 B and 121 B a ray) over the
+     memory rate;
   5. timing with CUDA events (kernel best of 3 after a warm-up, the plain
      march one run): the bench workload of bench.py (0.01 grid, 125,800
      rays) on the kernel, and the kernel against the plain march on the
@@ -204,7 +216,9 @@ graph (ops/integrate.py).
 The last lines are phase 13's launch-trace record, phase 19's, phase 20's,
 the per-kernel JSON record (the march kernels, then the scatter kernel's
 two routes from phase 8b: ms, plain_ms the index_add_ route, bound_ms,
-launches on the main paths of phases 4 and 8) and the device record.
+launches on the main paths of phases 4 and 8; then the two redshift
+kernels from phase 4b: ms, plain_ms the torch chain, bound_ms, launches on
+phase 4's main paths, and each run's times) and the device record.
 A record's ms is its main path's batch at the CLI's steplim under the
 schedule the launcher gives it; bound_ms the largest of its issue times
 (each pipe's instructions, and all of them, over the card's rates; see
@@ -237,6 +251,12 @@ SOURCE = (0.0, 5.0, 1e-3, 1.5707)
 GOLDEN = ROOT / "tests" / "golden" / "emissivity_a0.998_h5_g0.05.dat"
 GOLDEN_MIDSPIN = ROOT / "tests" / "golden" / "emissivity_a0.5_h3_g0.05.dat"
 PARFILE = ROOT / "par_example" / "emissivity.par"
+RD_PARFILE = ROOT / "par_example" / "emissivity_rd.par"
+# phase 4's emissivity main paths: (tag, entry, par file, extra arguments,
+# the march kernel's variant)
+EMIS_RUNS = (("rk45", "main", PARFILE, (), "rk45_theta"),
+             ("rk4", "main", PARFILE, ("--integrator=rk4",), "rk4_theta"),
+             ("rd", "main_rd", RD_PARFILE, (), "rk4_theta"))
 IMAGE_PARFILE = ROOT / "par_example" / "imageplane_disc_image.par"
 GOLDEN_ISCO = ROOT / "tests" / "golden" / "disc_image_isco_a0.998_i60_rk45.bin"
 GOLDEN_FAR = ROOT / "tests" / "golden" / "disc_image_d10000_a0.998_i80_rk45.bin"
@@ -366,6 +386,7 @@ PIPES = tuple(PIPE_LANES) + ("total",)
 STEP_ISSUE = {}
 CARD = {}
 BIN_REGS = {}  # the bins' scatter kernels' registers (phase 1): route -> count
+REDSHIFT_REGS = {}  # the redshift kernels' registers (phase 1): name -> count
 HBM_BYTES_PER_S = 3.35e12
 KINDS = ("theta", "isco", "plane", "shell")
 # CUDA math library subroutines that only its slow paths call, and the
@@ -1644,15 +1665,15 @@ def ptxas_kernels(log):
 
 def ptxas_lines(log):
     """One line per kernel of nvcc's -Xptxas -v output: the march kernels'
-    schedule, method, destination and dtype, the bins' scatter kernels by
-    name; then registers, stack and spills."""
+    schedule, method, destination and dtype, the bins' scatter kernels and
+    the redshift kernels by name; then registers, stack and spills."""
     import re
 
     methods, dests = {1: "rk4", 2: "rk45", 3: "euler"}, ("theta", "isco", "plane", "shell")
     out = []
     for name, k in sorted(ptxas_kernels(log).items()):
         m = re.search(r"(march_kernel|march_refill_kernel)I([fd])Li(\d)ELi(\d)E", name)
-        b = re.search(r"bin_scatter_\w+?_kernel", name)
+        b = re.search(r"bin_scatter_\w+?_kernel|emit_kernel|emis_weights_kernel", name)
         if m:
             sched = "grid" if m.group(1) == "march_kernel" else "refill"
             what = (f"{methods[int(m.group(3))]} x {dests[int(m.group(4))]} "
@@ -1758,6 +1779,140 @@ def hold_bins(scatters, main_launches, torch):
             "registers": int(BIN_REGS[route]),
             "warps_per_block": warps,
             "batch": f"{cell}, {n} rays, {in_mask} in the mask, {n_bins} bins x {k + 1} rows",
+        })
+    return records
+
+
+@contextlib.contextmanager
+def redshift_inputs(redshift):
+    """``redshift.emit_kernel`` and ``emis_weights_kernel`` wrapped while
+    inside: each call's name and arguments, ("emit", rays, spin, V) or
+    ("weights", rays, spin, variant, scalars), appended to the list
+    yielded."""
+    seen, emit, weights = [], redshift.emit_kernel, redshift.emis_weights_kernel
+
+    def keep_emit(rays, spin, V):
+        seen.append(("emit", rays, spin, V))
+        return emit(rays, spin, V)
+
+    def keep_weights(rays, spin, variant, **scalars):
+        seen.append(("weights", rays, spin, variant, scalars))
+        return weights(rays, spin, variant, **scalars)
+
+    redshift.emit_kernel, redshift.emis_weights_kernel = keep_emit, keep_weights
+    try:
+        yield seen
+    finally:
+        redshift.emit_kernel, redshift.emis_weights_kernel = emit, weights
+
+
+# phase 4b: the redshift kernels (csrc/redshift.cu) and the bytes each moves a
+# ray: emit_kernel reads 7 float64 fields and 2 int32 ones and writes emit;
+# emis_weights_kernel reads 9 float64 fields and the 2 int32 ones and writes
+# the int64 id, the bool mask and 4 float64 weights
+REDSHIFT_KERNELS = ("emit_kernel", "emis_weights_kernel")
+REDSHIFT_BYTES = {"emit_kernel": 7 * 8 + 2 * 4 + 8,
+                  "emis_weights_kernel": 9 * 8 + 2 * 4 + 8 + 1 + 4 * 8}
+
+
+def torch_redshift_chain(out, spin, variant, *, r_isco, theta_lim, r_min, dr, n_bins, logbin,
+                         gamma, n_primary):
+    """The emissivity app's torch route from the marched batch to the bins'
+    scatter (``apps.emissivity.disc_bins``): the bin ids, the hits in a bin
+    and the four weight columns, as ``emis_weights_kernel`` returns them."""
+    from raytrace_tpu_torch.apps import emissivity
+    from raytrace_tpu_torch.destinations import FlatDisc
+    from raytrace_tpu_torch.ops.reductions import radial_bin_index
+    from raytrace_tpu_torch.ops.redshift import apply_redshift, apply_redshift_dest, range_phi
+
+    if variant == "plain":
+        out = apply_redshift(range_phi(out), spin, V=-1.0)
+        hit = emissivity.disc_hit_mask(out, spin)
+    else:
+        out = apply_redshift_dest(range_phi(out), spin, FlatDisc(theta_lim))
+        hit = out.ok & (out.theta >= theta_lim - 1e-3) & (out.redshift > 0) & (out.r >= r_isco)
+    weights = emissivity.emissivity_bin_weights(out, gamma, n_primary)
+    ids, in_range = radial_bin_index(out.r, r_min, dr, n_bins, logbin)
+    return ids, hit & in_range, [weights[k] for k in emissivity.WEIGHTS]
+
+
+def bits(t, torch):
+    """``t`` viewed as integers of its width, for a bitwise comparison."""
+    views = {torch.float64: torch.int64, torch.int64: torch.int64, torch.bool: torch.uint8}
+    return t.contiguous().view(views[t.dtype])
+
+
+def hold_redshift(kept, main_launches, torch):
+    """Phase 4b: the redshift kernels on each emissivity main path's kept
+    inputs, ``kept[run]`` = [("emit", rays, spin, V), ("weights", out,
+    spin, variant, scalars)], against the torch chains they replace on
+    the same card tensors (``redshift_start``; ``torch_redshift_chain``):
+    every bit of emit, the ids, the mask and the four weights. Both sides
+    timed (CUDA events, best of 3 after a warm-up, one launch a call), and
+    the bound: the bytes read and written (REDSHIFT_BYTES a ray) over the
+    memory rate. Returns the kernels line's records, timed on the first
+    run's batch with every run's times beside; ``main_launches`` by
+    kernel are phase 4's."""
+    from raytrace_tpu_torch.ops import redshift
+    from raytrace_tpu_torch.ops.redshift import redshift_start
+
+    runs = {k: {} for k in REDSHIFT_KERNELS}
+    for run, calls in kept.items():
+        check([c[0] for c in calls] == ["emit", "weights"], f"{run}: redshift calls {calls}")
+        (_, rays, spin, V), (_, out, w_spin, variant, scalars) = calls
+        n = rays.n_rays
+        plain_ms, want = cuda_ms(lambda: redshift_start(rays, spin, V), torch)
+        before = redshift.launches
+        ms, got = cuda_ms(lambda: redshift.emit_kernel(rays, spin, V), torch)
+        check(redshift.launches == before + 4, f"{run}: not one emit_kernel launch a call")
+        check(torch.equal(bits(got.emit, torch), bits(want.emit, torch)),
+              f"{run}: emit_kernel differs from redshift_start in "
+              f"{int((bits(got.emit, torch) != bits(want.emit, torch)).sum())} rays")
+        runs["emit_kernel"][run] = dict(ms=ms, plain_ms=plain_ms, n=n, batch=f"V {V}")
+
+        plain_ms, want = cuda_ms(lambda: torch_redshift_chain(out, w_spin, variant, **scalars),
+                                 torch)
+        before = redshift.launches
+        ms, got = cuda_ms(lambda: redshift.emis_weights_kernel(out, w_spin, variant, **scalars),
+                          torch)
+        check(redshift.launches == before + 4, f"{run}: not one emis_weights_kernel launch a call")
+        names = ("ids", "mask", "flux", "emis", "redshift", "time")
+        differ = [name for name, a, b in zip(names, (got[0], got[1], *got[2]),
+                                             (want[0], want[1], *want[2]))
+                  if not torch.equal(bits(a, torch), bits(b, torch))]
+        check(not differ, f"{run}: emis_weights_kernel ({variant}) differs from the torch chain "
+              f"in {differ}")
+        hits = int(got[1].sum())
+        check(hits > 100_000, f"{run}: only {hits} disc hits in a bin")
+        runs["emis_weights_kernel"][run] = dict(ms=ms, plain_ms=plain_ms, n=n,
+                                                batch=f"{variant}, {hits} hits in a bin")
+        for kernel in REDSHIFT_KERNELS:
+            t = runs[kernel][run]
+            moved = n * REDSHIFT_BYTES[kernel]
+            t["bound_ms"] = moved / HBM_BYTES_PER_S * 1e3
+            print(f"redshift {kernel} {run}: {n} rays ({t['batch']}): kernel {t['ms']:.4f} ms "
+                  f"(best of 3), the torch chain {t['plain_ms']:.3f} ms "
+                  f"({t['plain_ms'] / t['ms']:.0f}x), bound {t['bound_ms']:.4f} ms ({moved} B; "
+                  f"{t['ms'] / t['bound_ms']:.2f}x); every bit equal")
+        del want, got
+    records = []
+    for kernel in REDSHIFT_KERNELS:
+        first = next(iter(runs[kernel].values()))
+        records.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "raytrace_tpu_torch/csrc/redshift.cu",
+            "replaces": "raytrace_tpu/ops/redshift.py (XLA-fused elementwise, no TPU kernel)",
+            "launches": main_launches[kernel],
+            "max_abs_err": 0.0,
+            "ms": first["ms"],
+            "plain_ms": first["plain_ms"],
+            "bound_ms": first["bound_ms"],
+            "bound_by": "bytes",
+            "registers": int(REDSHIFT_REGS[kernel]),
+            "runs": {run: {k: t[k] for k in ("ms", "plain_ms", "bound_ms")}
+                     for run, t in runs[kernel].items()},
+            "batch": f"emissivity {next(iter(runs[kernel]))}, {first['n']} rays",
         })
     return records
 
@@ -2873,7 +3028,8 @@ def main() -> int:
     from raytrace_tpu_torch.config import Config
     from raytrace_tpu_torch.destinations import SphericalShell
     from raytrace_tpu_torch.io import read_fits
-    from raytrace_tpu_torch.ops import kernel_steplim, march_kernel, reductions, trace, trace_auto
+    from raytrace_tpu_torch.ops import (kernel_steplim, march_kernel, reductions, redshift, trace,
+                                        trace_auto)
     from raytrace_tpu_torch.sources import ImagePlaneGrid, PointSourceGrid
 
     # lives until the script ends: phase 8 writes the disc image phase 17 folds
@@ -2905,6 +3061,12 @@ def main() -> int:
                             BIN_REGS[route] = k["regs"]
                 check(set(BIN_REGS) == {"block", "global"},
                       f"ptxas named the bins' scatter kernels' registers {BIN_REGS}")
+                for name, k in ptxas_kernels(log).items():
+                    for kernel in REDSHIFT_KERNELS:
+                        if f"{kernel}E" in name:
+                            REDSHIFT_REGS[kernel] = k["regs"]
+                check(set(REDSHIFT_REGS) == set(REDSHIFT_KERNELS),
+                      f"ptxas named the redshift kernels' registers {REDSHIFT_REGS}")
                 for name, proc in probes.items():
                     out, _ = proc.communicate()
                     check(proc.returncode == 0, f"nvcc of the {name} failed:\n{out[-3000:]}")
@@ -2992,39 +3154,46 @@ def main() -> int:
     bin_launches = {"block": 0, "global": 0}  # the main paths' scatter launches, by route
     held = {}  # (main path, variant) -> (parity record, plain ms, plain steplim)
     batches = []  # (main path, variant, rays, spin, march keywords, method, march dtype)
+    redshift_kept = {}  # emissivity main path -> its redshift kernels' inputs (phase 4b)
+    redshift_launches = dict.fromkeys(REDSHIFT_KERNELS, 0)  # phase 4's, by kernel
     with Phase("4 full size"):
         par = emissivity.compute_args(Config([f"--parfile={PARFILE}"]))
         n_rays = par["grid"].n_rays
         with tempfile.TemporaryDirectory() as tmp:
-            for method in ("rk45", "rk4"):
-                outfile = Path(tmp) / f"emissivity_{method}.dat"
-                argv = [f"--parfile={PARFILE}", f"--outfile={outfile}"]
-                if method == "rk4":
-                    argv.append("--integrator=rk4")
+            for tag, entry, parfile, extra, variant in EMIS_RUNS:
+                outfile = Path(tmp) / f"emissivity_{tag}.dat"
+                argv = [f"--parfile={parfile}", f"--outfile={outfile}", *extra]
                 march_kernel.launches = 0
                 reductions.launches = 0
+                redshift.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                with scatter_inputs(reductions) as seen:
-                    rc = emissivity.main(argv)
+                with scatter_inputs(reductions) as seen, redshift_inputs(redshift) as calls:
+                    rc = getattr(emissivity, entry)(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                launches[f"{method}_theta"] = march_kernel.launches
-                check(rc == 0, f"emissivity main returned {rc}")
+                launches[variant] = launches.get(variant, 0) + march_kernel.launches
+                check(rc == 0, f"emissivity {entry} returned {rc}")
                 check(reductions.launches == 1 and len(seen) == 1,
-                      f"emissivity main ({method}): {reductions.launches} scatter launches")
+                      f"emissivity {entry} ({tag}): {reductions.launches} scatter launches")
                 bin_launches["block"] += reductions.launches
-                if method == "rk45":
+                if tag == "rk45":
                     scatters["emis_table"] = seen[0]
-                check(march_kernel.launches > 0, f"main path ({method}) never launched the kernel")
+                check(redshift.launches == 2 and [c[0] for c in calls] == ["emit", "weights"],
+                      f"emissivity {entry} ({tag}): {redshift.launches} redshift kernel "
+                      f"launches, calls {[c[0] for c in calls]}")
+                for kernel in REDSHIFT_KERNELS:
+                    redshift_launches[kernel] += 1
+                redshift_kept[tag] = calls
+                check(march_kernel.launches > 0, f"main path ({tag}) never launched the kernel")
                 prof = np.loadtxt(outfile)
                 check(prof.shape == (100, 7), f"output shape {prof.shape}")
                 full = prof[:, 2] >= 100
                 check(full.sum() >= 12, f"only {int(full.sum())} bins with >= 100 rays")
                 check(np.isfinite(prof[full, 4]).all(), "non-finite emissivity in populated bins")
-                print(f"full size {method}: {n_rays} rays, wall {wall:.3f} s, "
+                print(f"full size {tag} ({entry}): {n_rays} rays, wall {wall:.3f} s, "
                       f"{n_rays / wall:.4e} rays/s, {int(full.sum())} bins >= 100 rays, "
-                      f"{march_kernel.launches} kernel launch(es)")
+                      f"{march_kernel.launches} kernel launch(es), 2 redshift kernel launches")
 
         # the kernel against the plain march on the main path's own batch:
         # built as compute builds it, marched in float32 as trace_auto marches
@@ -3039,6 +3208,10 @@ def main() -> int:
             batches.append(("emissivity", f"{method}_theta", rays, par["spin"], {}, method,
                             torch.float32))
         del out
+
+    with Phase("4b redshift kernels"):
+        redshift_records = hold_redshift(redshift_kept, redshift_launches, torch)
+        redshift_kept.clear()
 
     with Phase("5 timing"):
         bench_grid = PointSourceGrid.from_steps(0.01, 0.01)
@@ -3361,7 +3534,7 @@ def main() -> int:
             "lone_floor_ms": t["lone_floor_ms"],
             "batch": f"{path}, {t['n_rays']} rays",
         })
-    kernels += bin_records
+    kernels += bin_records + redshift_records
     # the bound counts accepted steps; a rejected trial is one more full
     # iteration of the loop, so the bound over the trials is the bound times
     # trials / accepted steps (the emissivity batch's finished lanes)

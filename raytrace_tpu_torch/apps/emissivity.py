@@ -30,6 +30,7 @@ import os
 import sys
 
 import numpy as np
+import torch
 
 from raytrace_tpu_torch.apps import app_device, require_device
 from raytrace_tpu_torch.config import Config
@@ -37,9 +38,10 @@ from raytrace_tpu_torch.destinations import FlatDisc
 from raytrace_tpu_torch.geometry import integrate_disc_area_bins, isco_radius
 from raytrace_tpu_torch.geometry.kerr import bl_to_cartesian
 from raytrace_tpu_torch.io import TextOutput
-from raytrace_tpu_torch.ops import StepControl, trace_auto
+from raytrace_tpu_torch.ops import StepControl, reductions, redshift, trace_auto
 from raytrace_tpu_torch.ops.reductions import bin_edges, radial_bin_profile
-from raytrace_tpu_torch.ops.redshift import apply_redshift_dest, range_phi, redshift_start
+from raytrace_tpu_torch.ops.redshift import (apply_redshift, apply_redshift_dest, range_phi,
+                                             redshift_start)
 from raytrace_tpu_torch.parallel import (RayMesh, auto_mesh, pad_rays, shard_rays,
                                          sharded_emissivity_bins)
 from raytrace_tpu_torch.sources import PointSourceGrid, point_source
@@ -56,6 +58,10 @@ def disc_hit_mask(out, spin, r_isco=None):
     return out.ok & (z < 1e-2) & (out.redshift > 0) & (out.r >= r_isco)
 
 
+# the weights of the radial bins, in the order of emissivity_bin_weights
+WEIGHTS = ("flux", "emis", "redshift", "time")
+
+
 def emissivity_bin_weights(out, gamma, n_primary=1.0):
     """Per-ray weights of the radial bins (emissivity.cpp:108-121): photon
     flux 1/(N g), emissivity 1/g^gamma, redshift and arrival time."""
@@ -66,6 +72,55 @@ def emissivity_bin_weights(out, gamma, n_primary=1.0):
         "redshift": g,
         "time": out.t,
     }
+
+
+def start_redshift(rays, spin, V):
+    """``redshift_start(rays, spin, V)`` in the span ``rt.redshift``: on a
+    batch ``ops.redshift.kernel_takes`` (float64 on a card, no derivative)
+    one launch of its kernel, in ``rt.redshift.kernel``; torch's chain
+    otherwise, in ``rt.redshift.torch``. The same bits either way."""
+    with span("rt.redshift"):
+        if redshift.kernel_takes(rays, spin, V):
+            with span("rt.redshift.kernel"):
+                return redshift.emit_kernel(rays, spin, V)
+        with span("rt.redshift.torch"):
+            return redshift_start(rays, spin, V)
+
+
+def disc_bins(out, spin, variant, *, r_min, dr, n_r, logbin_r, gamma, n_primary,
+              theta_lim=math.pi / 2):
+    """The marched batch ``out`` into the radial bins: each ray's redshift,
+    the hit test of ``variant`` ("plain": ``disc_hit_mask`` after the
+    Keplerian-orbit redshift; "rd": theta >= theta_lim - 1e-3 after the
+    FlatDisc 4-velocity's), the weights (``emissivity_bin_weights``) in
+    the span ``rt.redshift``, then the bins in ``rt.bins``. Returns
+    (counts, {flux, emis, redshift, time}). On a batch
+    ``ops.redshift.kernel_takes`` everything before the bins is one launch
+    of ``emis_weights_kernel`` (``rt.redshift.kernel``), torch's chain
+    otherwise (``rt.redshift.torch``); the same bits either way (but the
+    emis weight for a ``gamma`` outside torch's forms of ``pow``)."""
+    if redshift.kernel_takes(out, spin, theta_lim, r_min, dr, gamma, n_primary):
+        with span("rt.redshift"), span("rt.redshift.kernel"):
+            ids, mask, columns = redshift.emis_weights_kernel(
+                out, spin, variant, r_isco=isco_radius(spin), theta_lim=theta_lim, r_min=r_min,
+                dr=dr, n_bins=n_r, logbin=logbin_r, gamma=gamma, n_primary=n_primary)
+        with span("rt.bins"):
+            counts, *sums = reductions.masked_bins(columns, ids, mask, n_r, torch.float64)
+        return counts, dict(zip(WEIGHTS, sums))
+    with span("rt.redshift"), span("rt.redshift.torch"):
+        if variant == "plain":
+            out = apply_redshift(range_phi(out), spin, V=-1.0)
+            mask = disc_hit_mask(out, spin)
+        elif variant == "rd":
+            # destination-API route (emissivity_rd.cpp:99-116): the 4-velocity
+            # redshift, hit test on the landing polar angle
+            out = apply_redshift_dest(range_phi(out), spin, FlatDisc(theta_lim))
+            mask = (out.ok & (out.theta >= theta_lim - 1e-3) & (out.redshift > 0)
+                    & (out.r >= isco_radius(spin)))
+        else:
+            raise ValueError(f"unknown variant {variant!r}")
+        weights = emissivity_bin_weights(out, gamma, n_primary)
+    return radial_bin_profile(out.r, mask, weights, r_min, dr, n_r, logbin_r)
 
 
 def compute(
@@ -103,16 +158,18 @@ def compute(
     variant marches the whole batch on the mesh's device.
 
     Runs in the span ``rt.compute`` (``utils.profiling``): the source in
-    ``rt.source``, the redshifts in ``rt.redshift``, the march in
+    ``rt.source``, the redshifts in ``rt.redshift`` (``start_redshift``,
+    ``disc_bins``: on a card each one kernel launch in
+    ``rt.redshift.kernel``, with nothing copied to the card, so the host
+    queues the post-march work while the card marches), the march in
     ``rt.march``, the bins in ``rt.bins``, then the bins' areas on the host
     in ``rt.areas`` (after the card's work is queued, so that on a card
     they are built while it runs), the columns' copies to the host in
     ``rt.to_host``."""
     with span("rt.compute"):
         device = require_device(device if mesh is None else mesh.device)
-        r_isco = isco_radius(spin)
         if r_min is None or r_min < 0:
-            r_min = float(r_isco)
+            r_min = float(isco_radius(spin))
         disc_r, disc_width, dr = bin_edges(r_min, r_disc, n_r, logbin_r, device="cpu")
 
         # grid-cell count for the primary-flux normalisation (emissivity.cpp:61):
@@ -129,21 +186,12 @@ def compute(
                 dr=dr, n_r=n_r, logbin_r=logbin_r, gamma=gamma, n_primary=n_primary,
                 method=method, r_max=r_max, steplim=steplim, ctrl=ctrl)
         elif variant == "rd":
-            # destination-API route (emissivity_rd.cpp:99-116): FlatDisc surface,
-            # 4-velocity redshift, hit test on the landing polar angle
-            dest = FlatDisc(theta_lim)
-            with span("rt.redshift"):
-                rays = redshift_start(rays, spin, V)
-            rays = trace_auto(rays, spin, method=method, dest=dest, r_max=r_max,
-                              steplim=steplim, ctrl=ctrl)
-            with span("rt.redshift"):
-                rays = apply_redshift_dest(range_phi(rays), spin, dest)
-            mask = (rays.ok & (rays.theta >= theta_lim - 1e-3) & (rays.redshift > 0)
-                    & (rays.r >= r_isco))
-            counts, sums = radial_bin_profile(
-                rays.r, mask, emissivity_bin_weights(rays, gamma, n_primary),
-                r_min, dr, n_r, logbin_r,
-            )
+            # destination-API route (emissivity_rd.cpp:99-116): FlatDisc surface
+            rays = trace_auto(start_redshift(rays, spin, V), spin, method=method,
+                              dest=FlatDisc(theta_lim), r_max=r_max, steplim=steplim, ctrl=ctrl)
+            counts, sums = disc_bins(rays, spin, "rd", r_min=r_min, dr=dr, n_r=n_r,
+                                     logbin_r=logbin_r, gamma=gamma, n_primary=n_primary,
+                                     theta_lim=theta_lim)
         else:
             raise ValueError(f"unknown variant {variant!r}")
         with span("rt.areas"):

@@ -17,7 +17,9 @@ The kernel is compiled on first use with nvcc into ``_build/`` next to the
 package (rebuilt when a source is newer than the library) and loaded with
 ctypes. A missing nvcc or a failed build raises; nothing here falls back to
 the plain version. The same library holds the bins' scatter kernel
-(``csrc/bins.cu``), which ``ops/reductions.py::bin_scatter`` launches.
+(``csrc/bins.cu``), which ``ops/reductions.py::bin_scatter`` launches, and
+the emissivity's redshift kernels (``csrc/redshift.cu``), which
+``ops/redshift.py::emit_kernel`` and ``emis_weights_kernel`` launch.
 """
 
 from __future__ import annotations
@@ -48,8 +50,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 _LIB = BUILD_DIR / "libraytrace_march.so"
-_LIB_SOURCES = (CSRC / "march.cu", CSRC / "bins.cu")
-_SOURCES = (*_LIB_SOURCES, CSRC / "march.cuh")
+_LIB_SOURCES = (CSRC / "march.cu", CSRC / "bins.cu", CSRC / "redshift.cu")
+_SOURCES = (*_LIB_SOURCES, CSRC / "march.cuh", CSRC / "redshift.cuh")
 
 # The 21 arrays the kernel marches, in the order of rt_march_launch.
 F_FIELDS = (
@@ -125,7 +127,7 @@ def nvcc_command(source, out, defines=()) -> list:
 
 
 def build(force: bool = False) -> str:
-    """Compile ``csrc/march.cu`` and ``csrc/bins.cu`` into
+    """Compile ``csrc/march.cu``, ``csrc/bins.cu`` and ``csrc/redshift.cu`` into
     ``_build/libraytrace_march.so`` (``nvcc_command``) unless the library
     is newer than its sources. Returns nvcc's output, empty when the
     library was up to date."""
@@ -142,8 +144,8 @@ def build(force: bool = False) -> str:
 
 
 def open_library(path):
-    """A built march library, its entry points declared (the bins' where
-    it has them: the launch-trace side build has not)."""
+    """A built march library, its entry points declared (the bins' and the
+    redshift's where it has them: the launch-trace side build has not)."""
     lib = ctypes.CDLL(str(path))
     lib.rt_march_launch.argtypes = argtypes()
     lib.rt_march_launch.restype = ctypes.c_int
@@ -155,7 +157,24 @@ def open_library(path):
                                               c.c_int64, c.c_int64, c.c_int, c.c_int64,
                                               c.c_void_p, c.c_void_p, c.c_void_p]
         lib.rt_bin_scatter_launch.restype = c.c_int
+    if hasattr(lib, "rt_emit_launch"):
+        c = ctypes
+        lib.rt_emit_launch.argtypes = [c.c_void_p, c.c_void_p, c.c_int64, c.c_double,
+                                       c.c_double, c.c_void_p]
+        lib.rt_emit_launch.restype = c.c_int
+        lib.rt_emis_weights_launch.argtypes = emis_weights_argtypes() + [c.c_void_p]
+        lib.rt_emis_weights_launch.restype = c.c_int
     return lib
+
+
+def emis_weights_argtypes() -> list:
+    """ctypes argument list of rt_emis_weights_launch without its stream
+    (that of the host build's rt_emis_weights_host): the 11 ray pointers
+    as one array, the ids, mask and columns, n, spin, the route, r_isco,
+    theta_lim, log bins, r_min, the step, n_bins, gamma and n_primary."""
+    c = ctypes
+    return ([c.c_void_p] * 4 + [c.c_int64, c.c_double, c.c_int, c.c_double, c.c_double, c.c_int,
+                                c.c_double, c.c_double, c.c_int64, c.c_double, c.c_double])
 
 
 def load():

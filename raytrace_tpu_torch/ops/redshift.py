@@ -8,17 +8,38 @@ tetrad it does so here too, and the photon's spatial momentum is reversed
 before the frame projection (raytracer.cpp:367,409,488,541-544).
 ``projradius`` takes the Keplerian velocity at the radius projected on the
 equatorial plane; ``motion = 1`` makes the receiver move radially.
+
+The emissivity app's two chains, ``redshift_start`` before the march and
+its redshift, hit test, bin ids and weights after it, also run as two
+hand-written kernels (``csrc/redshift.cu``: ``emit_kernel``,
+``emis_weights_kernel``) on a batch ``kernel_takes``; they give the torch
+chains' bits on the card (but for ``gamma`` outside torch's forms of
+``pow``: ``emis_weights_kernel``).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import torch
 
 from raytrace_tpu_torch import mathfn
 from raytrace_tpu_torch.geometry.kerr import metric_coeffs, metric_dot, momentum_from_consts
+from raytrace_tpu_torch.ops.reductions import carries_derivative
 from raytrace_tpu_torch.rays import RAY_STATUS_DEST, RAY_STATUS_RLIM, RayBatch
+
+# The per-ray fields the redshift kernels read, in the order of their
+# launch arguments (csrc/redshift.cu): float64 but the two int32 counters.
+KERNEL_FIELDS = ("t", "r", "theta", "k", "h", "Q", "rdot_sign", "thetadot_sign", "emit",
+                 "steps", "status")
+_INT_FIELDS = ("steps", "status")
+
+# the hit tests of emis_weights_kernel, by the emissivity's variant
+_ROUTE_CODE = {"plain": 0, "rd": 1}
+
+# Redshift kernel launches so far: counted where they are launched, nowhere else.
+launches = 0
 
 
 def _sanitize(rays: RayBatch) -> RayBatch:
@@ -153,3 +174,99 @@ def range_phi(rays: RayBatch, lo=-math.pi, hi=math.pi) -> RayBatch:
     wrapped = rays.phi - span * torch.floor((rays.phi - lo) / span)
     ok = (torch.abs(rays.phi) <= 1000) & torch.isfinite(rays.phi) & (rays.steps > 0)
     return rays.replace(phi=torch.where(ok, wrapped, rays.phi))
+
+
+def kernel_takes(rays: RayBatch, *scalars) -> bool:
+    """Whether the emissivity's chains run as the kernels: a batch on a card
+    with no derivative in its fields or scalars (``carries_derivative``).
+    The CPU and a derivative take torch's chain. On a card the kernels take
+    only a float64 batch and Python-number scalars, and anything else
+    raises."""
+    if not rays.r.is_cuda or any(
+            carries_derivative(x) for x in (*(getattr(rays, f) for f in KERNEL_FIELDS), *scalars)
+            if isinstance(x, torch.Tensor)):
+        return False
+    if rays.r.dtype != torch.float64:
+        raise ValueError(f"the redshift kernels take a float64 batch, not {rays.r.dtype}")
+    if any(isinstance(x, torch.Tensor) for x in scalars):
+        raise TypeError("the redshift kernels take their scalars as Python numbers, not tensors")
+    return True
+
+
+def _pointers(rays: RayBatch):
+    """The fields the kernels read, contiguous and in their dtypes, and a
+    ctypes array of their data pointers in launch order."""
+    fields = [getattr(rays, f).to(torch.int32 if f in _INT_FIELDS else torch.float64).contiguous()
+              for f in KERNEL_FIELDS]
+    return fields, (ctypes.c_void_p * len(fields))(*(x.data_ptr() for x in fields))
+
+
+def emit_args(rays: RayBatch, spin, V):
+    """``emit_kernel``'s inputs (kept alive with the call), its output
+    ``emit`` and the launch's arguments but the stream."""
+    fields, ptrs = _pointers(rays)
+    emit = torch.empty_like(fields[1])
+    return fields, emit, [ptrs, emit.data_ptr(), rays.n_rays, float(spin), float(V)]
+
+
+def emis_weights_args(rays: RayBatch, spin, variant: str, *, r_isco, theta_lim, r_min, dr,
+                      n_bins: int, logbin: bool, gamma, n_primary):
+    """``emis_weights_kernel``'s inputs (kept alive with the call), its
+    outputs (ids, mask, columns) and the launch's arguments but the
+    stream: the bins' step is log(dr) for log bins (as
+    ``reductions.radial_bin_index`` takes it), dr for linear ones."""
+    fields, ptrs = _pointers(rays)
+    n, device = rays.n_rays, fields[1].device
+    ids = torch.empty(n, dtype=torch.int64, device=device)
+    mask = torch.empty(n, dtype=torch.bool, device=device)
+    columns = torch.empty(4, n, dtype=torch.float64, device=device)
+    args = [ptrs, ids.data_ptr(), mask.data_ptr(), columns.data_ptr(), n, float(spin),
+            _ROUTE_CODE[variant], float(r_isco), float(theta_lim), int(bool(logbin)),
+            float(r_min), math.log(dr) if logbin else float(dr), int(n_bins), float(gamma),
+            float(n_primary)]
+    return fields, (ids, mask, list(columns)), args
+
+
+def _launch(name: str, args: list, device) -> None:
+    """One launch of the library's ``name`` on the current stream of
+    ``device``, counted in ``launches``; raises on a CUDA error."""
+    global launches
+    from raytrace_tpu_torch.ops import march_kernel
+
+    with torch.cuda.device(device):
+        err = getattr(march_kernel.load(), name)(
+            *args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed with CUDA error {err}")
+    launches += 1
+
+
+def emit_kernel(rays: RayBatch, spin, V) -> RayBatch:
+    """``redshift_start(rays, spin, V)`` (not reversed, no ``projradius``)
+    as one launch of ``emit_kernel`` on the current stream of the batch's
+    card: the same bits, with ``spin`` and ``V`` passed by value. Counted
+    in ``launches``; does not synchronise."""
+    fields, emit, args = emit_args(rays, spin, V)
+    if rays.n_rays:
+        _launch("rt_emit_launch", args, emit.device)
+    return rays.replace(emit=emit)
+
+
+def emis_weights_kernel(rays: RayBatch, spin, variant: str, **scalars):
+    """The emissivity's chain after the march as one launch of
+    ``emis_weights_kernel`` on the current stream of the batch's card:
+    each ray's redshift (``apply_redshift(range_phi(rays), spin, V=-1.0)``
+    for ``variant`` "plain", ``apply_redshift_dest`` against the FlatDisc's
+    4-velocity for "rd"), the variant's hit test, ``radial_bin_index``
+    and ``emissivity_bin_weights``, from the keyword scalars of
+    ``emis_weights_args``. Returns (ids, mask, columns): the int64 bin ids,
+    the hits inside a bin and the flux, emis, redshift and time weights,
+    which ``reductions.masked_bins`` takes. The same bits as the torch
+    chain, but for a ``gamma`` that torch's pow takes no form of its own
+    for (``csrc/redshift.cuh``, ``pow_scalar``): that emis column is the
+    library's pow, an ulp or two from torch's. Every scalar passed by
+    value. Counted in ``launches``; does not synchronise."""
+    fields, (ids, mask, columns), args = emis_weights_args(rays, spin, variant, **scalars)
+    if rays.n_rays:
+        _launch("rt_emis_weights_launch", args, fields[1].device)
+    return ids, mask, columns

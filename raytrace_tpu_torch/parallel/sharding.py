@@ -35,8 +35,7 @@ import torch.distributed as dist
 
 from raytrace_tpu_torch.ops import trace_auto
 from raytrace_tpu_torch.ops.integrate import StepControl
-from raytrace_tpu_torch.ops.reductions import radial_bin_profile
-from raytrace_tpu_torch.ops.redshift import apply_redshift, range_phi, redshift_start
+from raytrace_tpu_torch.ops.redshift import redshift_start
 from raytrace_tpu_torch.rays import BOOL_FIELDS, FLOAT_FIELDS, INT_FIELDS, RayBatch
 from raytrace_tpu_torch.utils.profiling import span
 
@@ -229,21 +228,16 @@ def sharded_emissivity_bins(
     """The emissivity step on this rank's shard (``shard_rays`` of the
     lamppost batch, before ``redshift_start``): march, redshift and radial
     bins, then one ``all_reduce`` of the counts and sums stacked together.
-    The hit criterion and the weights are the app's own
-    (``apps.emissivity.disc_hit_mask`` / ``emissivity_bin_weights``).
-    Returns (counts, {flux, emis, redshift, time}), the same on every
-    rank."""
-    from raytrace_tpu_torch.apps.emissivity import disc_hit_mask, emissivity_bin_weights
+    The redshifts, the hit criterion and the weights are the app's own
+    (``apps.emissivity.start_redshift`` / ``disc_bins``: on a card the
+    redshift kernels). Returns (counts, {flux, emis, redshift, time}), the
+    same on every rank."""
+    from raytrace_tpu_torch.apps.emissivity import disc_bins, start_redshift
 
-    with span("rt.redshift"):
-        shard = redshift_start(rays, spin, V)
-    out = sharded_trace(shard, spin, mesh, method=method, r_max=r_max, steplim=steplim,
-                        ctrl=ctrl)
-    with span("rt.redshift"):
-        out = apply_redshift(range_phi(out), spin, V=-1.0)
-    counts, sums = radial_bin_profile(
-        out.r, disc_hit_mask(out, spin), emissivity_bin_weights(out, gamma, n_primary),
-        r_min, dr, n_r, logbin_r)
+    out = sharded_trace(start_redshift(rays, spin, V), spin, mesh, method=method, r_max=r_max,
+                        steplim=steplim, ctrl=ctrl)
+    counts, sums = disc_bins(out, spin, "plain", r_min=r_min, dr=dr, n_r=n_r,
+                             logbin_r=logbin_r, gamma=gamma, n_primary=n_primary)
     merged = _all_reduce(torch.stack([counts, *sums.values()]), mesh)
     return merged[0], dict(zip(sums, merged[1:]))
 

@@ -36,6 +36,10 @@ also writes it to a file):
 - ``bins_kernel_share``: the bins' scatters that took the scatter kernel
   (``rt.bins.kernel`` spans) over all the window's scatters (those and
   ``rt.bins.index_add``), None where it has none; ``bins_kernel_by_row``
+  the same by row;
+- ``redshift_kernel_share``: the emissivity's redshift chains that ran as
+  a kernel (``rt.redshift.kernel`` spans) over all of them (those and
+  ``rt.redshift.torch``), None where it has none; ``redshift_kernel_by_row``
   the same by row.
 
 A reader of the benchmark's own would take these from the same
@@ -133,25 +137,38 @@ def maps_hidden(window: harness.Window, program: list) -> dict:
     }
 
 
-def bins_kernel(window: harness.Window, program: list) -> dict:
-    """The bins' scatters by route: the ``rt.bins.kernel`` spans over
-    those and the ``rt.bins.index_add`` spans, over the window and by the
-    row of the ``job:<i>`` span each started in."""
-    routes = ("rt.bins.kernel", "rt.bins.index_add")
-    scatters = [(name, s) for name, _, s, _ in program if name in routes]
+def kernel_share(window: harness.Window, program: list, layer: str, other: str) -> dict:
+    """The calls of a layer by route: its ``rt.<layer>.kernel`` spans over
+    those and its ``rt.<layer>.<other>`` spans, over the window
+    (``<layer>_kernel_share``, None where it has none) and by the row of
+    the ``job:<i>`` span each started in (``<layer>_kernel_by_row``)."""
+    routes = (f"rt.{layer}.kernel", f"rt.{layer}.{other}")
+    calls = [(name, s) for name, _, s, _ in program if name in routes]
     rows = {}
-    for name, s in scatters:
+    for name, s in calls:
         job = next((j for j, js, je in window.spans if j.startswith("job:") and js <= s < je),
                    None)
         if job is not None:
             row = rows.setdefault(job, [0, 0])
             row[0] += name == routes[0]
             row[1] += 1
-    kernel = sum(name == routes[0] for name, _ in scatters)
+    kernel = sum(name == routes[0] for name, _ in calls)
     return {
-        "bins_kernel_share": kernel / len(scatters) if scatters else None,
-        "bins_kernel_by_row": {job: k / n for job, (k, n) in sorted(rows.items())},
+        f"{layer}_kernel_share": kernel / len(calls) if calls else None,
+        f"{layer}_kernel_by_row": {job: k / n for job, (k, n) in sorted(rows.items())},
     }
+
+
+def bins_kernel(window: harness.Window, program: list) -> dict:
+    """The bins' scatters by route: ``rt.bins.kernel`` against
+    ``rt.bins.index_add``."""
+    return kernel_share(window, program, "bins", "index_add")
+
+
+def redshift_kernel(window: harness.Window, program: list) -> dict:
+    """The emissivity's redshift chains by route: ``rt.redshift.kernel``
+    against ``rt.redshift.torch``."""
+    return kernel_share(window, program, "redshift", "torch")
 
 
 def report(window: harness.Window, program: list, launches: list, uncounted: int) -> dict:
@@ -198,6 +215,7 @@ def report(window: harness.Window, program: list, launches: list, uncounted: int
                                                       window.window_s)),
         **maps_hidden(window, program),
         **bins_kernel(window, program),
+        **redshift_kernel(window, program),
     }
 
 

@@ -168,15 +168,18 @@ def _recorded(par, device, variant, monkeypatch):
 def test_rd_job_records_the_plain_jobs_spans(monkeypatch):
     """Under the recorder, a CPU run of the rd driver's job records the
     spans of the same job through the plain variant: one ``rt.compute``
-    root and under it ``rt.source``, ``rt.redshift`` twice, ``rt.march``,
-    ``rt.bins`` (its scatter's route span beneath it), ``rt.areas`` and
-    ``rt.to_host``, each under the same parent."""
+    root and under it ``rt.source``, ``rt.redshift`` twice (its chain's
+    route span, ``rt.redshift.torch`` on the CPU, beneath each),
+    ``rt.march``, ``rt.bins`` (its scatter's route span beneath it),
+    ``rt.areas`` and ``rt.to_host``, each under the same parent."""
     par, _ = small_par(ROWS[0])
     trees = {v: _recorded(par, "cpu", v, monkeypatch)[0] for v in ("rd", "plain")}
     assert trees["rd"] == trees["plain"]
     assert trees["rd"] == [
         ("rt.compute", None), ("rt.source", "rt.compute"), ("rt.redshift", "rt.compute"),
-        ("rt.march", "rt.compute"), ("rt.redshift", "rt.compute"), ("rt.bins", "rt.compute"),
+        ("rt.redshift.torch", "rt.redshift"), ("rt.march", "rt.compute"),
+        ("rt.redshift", "rt.compute"), ("rt.redshift.torch", "rt.redshift"),
+        ("rt.bins", "rt.compute"),
         ("rt.bins.index_add", "rt.bins"), ("rt.areas", "rt.compute"),
         ("rt.to_host", "rt.compute")]
 
@@ -220,8 +223,9 @@ def test_card_rd_job_records_the_kernel_spans(monkeypatch):
     """At the cell's full width on the card, the rd job's spans are the
     plain variant's: under ``rt.march`` the kernel's ``rt.march.prepare``,
     ``rt.march.launch`` and ``rt.march.finish``, under ``rt.bins`` the
-    scatter kernel's ``rt.bins.kernel``; its one launch counts lane
-    iterations."""
+    scatter kernel's ``rt.bins.kernel``, under each ``rt.redshift`` the
+    redshift kernels' ``rt.redshift.kernel``; its one march launch counts
+    lane iterations."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the march and the bins run CUDA kernels")
     cell = harness.load_cell(harness.load_spec(), CELL)
@@ -236,3 +240,5 @@ def test_card_rd_job_records_the_kernel_spans(monkeypatch):
         assert (name, "rt.march") in trees["rd"], trees["rd"]
     assert ("rt.bins.kernel", "rt.bins") in trees["rd"]
     assert ("rt.bins.index_add", "rt.bins") not in trees["rd"]
+    assert trees["rd"].count(("rt.redshift.kernel", "rt.redshift")) == 2
+    assert ("rt.redshift.torch", "rt.redshift") not in trees["rd"]

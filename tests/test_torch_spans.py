@@ -117,9 +117,11 @@ CHILDREN = {
 def test_compute_records_the_layer_spans(run):
     """A CPU run of ``compute`` records one ``rt.compute`` root and, under
     it, the layers' spans in the order they run, under ``rt.bins`` its
-    scatter's route span (``rt.bins.index_add`` on the CPU); every span
-    lies inside its parent, stamped on the ``time.time_ns`` clock, and the
-    plain march launches nothing."""
+    scatter's route span (``rt.bins.index_add`` on the CPU) and, in the
+    emissivity, under each ``rt.redshift`` its chain's route span
+    (``rt.redshift.torch`` on the CPU; the image's redshifts have no
+    route); every span lies inside its parent, stamped on the
+    ``time.time_ns`` clock, and the plain march launches nothing."""
     profiling.start()
     t0 = time.time_ns()
     out = _image() if run == "image isco" else _emissivity(run.split()[1])
@@ -134,8 +136,13 @@ def test_compute_records_the_layer_spans(run):
     # the bins' one scatter takes index_add_ on the CPU, in its route span
     bins = names.index("rt.bins")
     assert [s[0] for s in rec.spans if s[1] == bins] == ["rt.bins.index_add"]
+    # the emissivity's redshift chains take torch's route on the CPU
+    routes = [[s[0] for s in rec.spans if s[1] == i]
+              for i, name in enumerate(names) if name == "rt.redshift"]
+    emissivity_run = run != "image isco"
+    assert routes == [["rt.redshift.torch"] if emissivity_run else []] * 2
     # the plain march opens no span of the kernel's
-    assert len(rec.spans) == 2 + len(CHILDREN[run])
+    assert len(rec.spans) == 2 + len(CHILDREN[run]) + 2 * emissivity_run
     for name, parent, s, e in rec.spans:
         assert t0 <= s <= e <= t1
         if parent >= 0:
@@ -405,3 +412,27 @@ def test_span_window_bins_kernel_share_on_a_hand_built_window():
     assert out["bins_kernel_by_row"] == {"job:0": 1.0, "job:1": 0.0}
     none = span_window.bins_kernel(window, program[:2])
     assert none == {"bins_kernel_share": None, "bins_kernel_by_row": {}}
+    assert out["redshift_kernel_share"] is None
+
+
+def test_span_window_redshift_kernel_share_on_a_hand_built_window():
+    """``span_window.redshift_kernel``: the emissivity's redshift chains
+    that ran as a kernel (``rt.redshift.kernel``) over all of them (and
+    ``rt.redshift.torch``), overall and by row; an ``rt.redshift`` with no
+    route (the image's) counts in neither."""
+    import span_window
+    from portbench import harness
+
+    spans = [("job:0", 0.0, 1.0), ("job:1", 1.0, 2.0)]
+    program = [("rt.compute", -1, 0.0, 0.9), ("rt.redshift", 0, 0.1, 0.2),
+               ("rt.redshift.kernel", 1, 0.11, 0.12), ("rt.redshift", 0, 0.5, 0.6),
+               ("rt.redshift.kernel", 3, 0.51, 0.52), ("rt.compute", -1, 1.0, 1.9),
+               ("rt.redshift", 5, 1.1, 1.2), ("rt.redshift.torch", 6, 1.11, 1.12),
+               ("rt.redshift", 5, 1.5, 1.6)]
+    window = harness.Window([], spans, 2, 2.0)
+    out = span_window.report(window, program, [], 0)
+    assert out["redshift_kernel_share"] == 2 / 3
+    assert out["redshift_kernel_by_row"] == {"job:0": 1.0, "job:1": 0.0}
+    assert out["bins_kernel_share"] is None
+    assert span_window.redshift_kernel(window, program[:2]) == {
+        "redshift_kernel_share": None, "redshift_kernel_by_row": {}}
